@@ -6,14 +6,13 @@ Writes a synthetic 1080p MJPG clip, then measures frames/sec for:
   - sequential VideoFile decode (the single-threaded baseline),
   - ParallelVideoReader at 1/2/4 workers (seek-sharded pool).
 
-cv2's decode releases the GIL, so pool scaling tracks HOST CORES. This
-dev box has ONE core (nproc=1) — the pool result here quantifies the
-pool's *overhead* at 1 core; the scaling headroom column reports
-cores-available so the artifact is honest about what was measurable.
-A real v5e host (dozens of cores) runs N workers at ~N x the baseline
-until PCIe or the container's demuxer serializes.
+cv2's decode releases the GIL, so pool scaling tracks HOST CORES: on a
+one-core host the pool result quantifies the pool's *overhead*, and the
+output reports cores-available so the numbers say what was measurable.
+A host with many cores runs N workers at up to ~N x the baseline until
+the container's demuxer serializes.
 
-Prints one JSON line; safe to re-run (work dir under /tmp).
+Prints one JSON line; safe to re-run (work dir under the temp dir).
 """
 
 from __future__ import annotations
@@ -21,6 +20,7 @@ from __future__ import annotations
 import json
 import os
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
@@ -49,7 +49,8 @@ def main():
     ap.add_argument("--frames", type=int, default=192)
     ap.add_argument("--height", type=int, default=1080)
     ap.add_argument("--width", type=int, default=1920)
-    ap.add_argument("--workdir", default="/tmp/tpuva_decode")
+    ap.add_argument("--workdir",
+                    default=os.path.join(tempfile.gettempdir(), "tpuva_decode"))
     args = ap.parse_args()
 
     from tpuva.io.file import VideoFile

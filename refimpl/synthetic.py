@@ -96,22 +96,15 @@ def multi_blob_clip(
         end = np.full(n_blobs, frames, int)
 
     plate = np.full((h, w), bg_level, np.uint8)
-    clip = np.empty((frames, h, w), np.uint8)
     alive = np.zeros((frames, n_blobs), bool)
     truth = np.full((frames, n_blobs, 2), np.nan)
+    centers = np.empty((frames, n_blobs, 2))
     for t in range(frames):
-        f = plate.copy()
+        centers[t] = pos
         for i in range(n_blobs):
             if start[i] <= t < end[i]:
                 alive[t, i] = True
                 truth[t, i] = pos[i]
-                render_disk(h, w, pos[i, 0], pos[i, 1], radius, fg_level, f)
-        if noise_sigma > 0:
-            f = np.clip(
-                f.astype(np.float32) + rng.normal(0, noise_sigma, (h, w)),
-                0, 255,
-            ).astype(np.uint8)
-        clip[t] = f
         # advance + bounce
         pos += vel
         for d, lim in ((0, w), (1, h)):
@@ -119,7 +112,37 @@ def multi_blob_clip(
             high = pos[:, d] > lim - margin
             vel[low | high, d] *= -1
             pos[:, d] = np.clip(pos[:, d], margin, lim - margin)
+
+    clip = np.empty((frames, h, w), np.uint8)
+    clip[:] = plate
+    for t in range(frames):
+        for i in np.flatnonzero(alive[t]):
+            _render_disk_box(clip[t], centers[t, i, 0], centers[t, i, 1],
+                             radius, fg_level)
+    if noise_sigma > 0:
+        # one (chunk, h, w) draw consumes the generator exactly like
+        # `chunk` successive (h, w) draws, so the frames do not depend on
+        # the chunk size
+        chunk = max(1, (1 << 24) // (h * w))
+        for t0 in range(0, frames, chunk):
+            part = clip[t0:t0 + chunk]
+            noise = rng.normal(0, noise_sigma, part.shape)
+            noise += part.astype(np.float32)
+            np.clip(noise, 0, 255, out=noise)
+            part[:] = noise.astype(np.uint8)
     return clip, alive, truth, plate
+
+
+def _render_disk_box(frame: np.ndarray, cx: float, cy: float, radius: float,
+                     fg: int) -> None:
+    """render_disk restricted to the disk's bounding box: the same
+    per-pixel test, evaluated only where it can be true."""
+    h, w = frame.shape
+    r0, r1 = max(0, int(cy - radius) - 1), min(h, int(cy + radius) + 2)
+    c0, c1 = max(0, int(cx - radius) - 1), min(w, int(cx + radius) + 2)
+    yy, xx = np.ogrid[r0:r1, c0:c1]
+    mask = (xx - cx) ** 2 + (yy - cy) ** 2 <= radius ** 2
+    frame[r0:r1, c0:c1][mask] = fg
 
 
 def random_mask(h: int, w: int, density: float = 0.3, seed: int = 0,

@@ -1,6 +1,6 @@
 """Reference-equivalent blob tracker (components G/H, SURVEY.md §2.3).
 
-Semantics pinned here are the contract the TPU scan tracker
+Semantics pinned here are the contract the device scan tracker
 (tpuva.track) must reproduce exactly:
 
 - detections arrive per frame as (x, y, area) tuples in CCL label order

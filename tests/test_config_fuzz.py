@@ -99,23 +99,6 @@ def test_random_config_bit_exact_without_blur(seed):
     assert_rows_match(ref.rows, rows)
 
 
-@pytest.mark.parametrize("seed", range(3))
-def test_random_config_single_pass_matches_dense(seed):
-    """Mode-lattice fuzz (VERDICT r4 item 8): random configs — incl.
-    Otsu thresholding and blur ksize up to 9 — through the dense-CCL
-    device path vs the single-pass tiled kernel + record reconcile.
-    Rows must be identical (the single-pass contract is bit-identity
-    with the converged path, whatever the config)."""
-    rng = np.random.default_rng(3000 + seed)
-    cfg = random_config(rng, with_blur=bool(seed % 2), allow_otsu=True)
-    clip, _, _, plate = fuzz_scene(seed)
-    rows_d, _, _ = process_clip(clip, cfg, background0=plate)
-    rows_s, _, _ = process_clip(
-        clip, cfg, background0=plate, ccl_single_pass=True
-    )
-    assert rows_s == rows_d
-
-
 def test_filter_chain_fuzz_batch_equals_frame_path():
     """T2 filter-chain fuzz: random compositions (crop, blur, median,
     time-difference, normalize) must produce identical results through

@@ -60,33 +60,20 @@ def test_eight_device_mesh_available():
     assert len(jax.devices()) >= 8, jax.devices()
 
 
-def test_pallas_single_chip_lax_map_matches_vmap_jnp():
-    """mesh=None + use_pallas=True takes the lax.map branch (vmap over a
-    pallas_call fails Mosaic lowering on real TPU — bench/tpu_smoke.py);
-    pin that it matches the vmap'd jnp path bit-for-bit."""
-    clips, plates = make_streams(S=3, T=8)
-    S = clips.shape[0]
-    fn_jnp = make_multistream_processor(CFG, S, mesh=None, use_pallas=False)
-    fn_pls = make_multistream_processor(CFG, S, mesh=None, use_pallas=True)
-    rows_jnp = run_multistream(fn_jnp, CFG, clips, plates)
-    rows_pls = run_multistream(fn_pls, CFG, clips, plates)
-    assert rows_pls == rows_jnp
+def test_auto_mesh_refuses_fewer_devices_than_streams():
+    """mesh='auto' must not quietly run every stream on one device when
+    several are visible but fewer than the streams: it raises, naming
+    both counts. One device, or enough for one stream each, still works."""
+    import pytest
 
+    from tpuva.dist import MultiStreamPipeline
 
-def test_pallas_under_shard_map_matches_jnp():
-    """The production v5e-8 setting runs each stream's fused Pallas
-    front-end inside shard_map (use_pallas auto-on for real TPU backends);
-    pin that the pallas-under-shard_map path is bit-identical to the jnp
-    path on the CPU mesh (interpret mode). Small shapes: interpret-mode
-    Pallas inside shard_map is compile-heavy on CI."""
-    clips, plates = make_streams(S=8, T=8)
-    S = clips.shape[0]
-    mesh = make_stream_mesh(S)
-    fn_jnp = make_multistream_processor(CFG, S, mesh=mesh, use_pallas=False)
-    fn_pls = make_multistream_processor(CFG, S, mesh=mesh, use_pallas=True)
-    rows_jnp = run_multistream(fn_jnp, CFG, clips, plates)
-    rows_pls = run_multistream(fn_pls, CFG, clips, plates)
-    assert rows_pls == rows_jnp
+    n_dev = len(jax.devices())
+    with pytest.raises(ValueError, match=f"{n_dev + 1} streams on {n_dev}"):
+        MultiStreamPipeline(CFG, n_dev + 1)
+    assert MultiStreamPipeline(CFG, n_dev).mesh is not None
+    one = MultiStreamPipeline(CFG, n_dev + 1, mesh=None)
+    assert one.mesh is None
 
 
 def test_shard_map_matches_vmap_and_single_stream():

@@ -262,14 +262,22 @@ def test_extract_detections_matches_refimpl():
 
 
 def test_stats_surface_ccl_convergence():
-    """connected_components_with_stats must surface the propagation
-    convergence flag (never silently drop accuracy): present and True on
-    the fixed-point XLA path, for batched and squeezed inputs."""
+    """The propagation runs to a true fixed point, so there is no
+    convergence flag to surface: labels and counts match cv2 for batched
+    and squeezed inputs of a diagonal-chain mask (every component is a
+    long 8-connected staircase)."""
     mask = (np.arange(64 * 96).reshape(64, 96) % 7 == 0).astype(np.uint8) * 255
-    out = ops.connected_components_with_stats(jnp.asarray(mask))
-    assert bool(out["ccl_converged"]) is True
-    outb = ops.connected_components_with_stats(jnp.asarray(mask[None]))
-    assert bool(outb["ccl_converged"]) is True
+    n_ref, lab_ref, _, _ = _cv_ccl(mask)
+    out = ops.connected_components_with_stats(
+        jnp.asarray(mask), max_components=1024
+    )
+    assert "ccl_converged" not in out
+    assert int(out["count"]) == n_ref - 1
+    np.testing.assert_array_equal(np.asarray(out["labels"]), lab_ref)
+    outb = ops.connected_components_with_stats(
+        jnp.asarray(mask[None]), max_components=1024
+    )
+    np.testing.assert_array_equal(np.asarray(outb["labels"][0]), lab_ref)
 
 
 @pytest.mark.parametrize("ksize", [3, 5])
@@ -277,8 +285,8 @@ def test_binomial_blur_exact_for_integer_inputs(ksize):
     """The box-cascade binomial path (sigma<=0, k in {3,5}) is EXACT for
     integer-valued inputs: every partial sum is an integer < 2^24 and the
     normalization is a power of two — pin bit-equality against an int64
-    ground-truth correlation. This is what makes the jnp and Pallas blur
-    twins bit-identical regardless of summation order."""
+    ground-truth correlation. This is what makes the blur bit-identical
+    on every device, whatever its summation order."""
     img = rand_u8(37, 61).astype(np.float32)
     out = np.asarray(ops.gaussian_blur(jnp.asarray(img), ksize, 0.0))
     k1 = (np.array([1, 2, 1]) if ksize == 3
@@ -291,3 +299,151 @@ def test_binomial_blur_exact_for_integer_inputs(ksize):
         np.float32
     )
     np.testing.assert_array_equal(out, want)
+
+
+def _scene(name):
+    """Masks whose components straddle block and tile boundaries, wind
+    through many turns, or fill or empty the frame."""
+    if name == "dense_noise":
+        return random_mask(97, 131, density=0.5, seed=21)
+    if name == "blocky":
+        return random_mask(100, 300, density=0.3, seed=22, blocky=True)
+    if name == "checker":
+        return ((np.indices((33, 47)).sum(axis=0) % 2) * 255).astype(np.uint8)
+    if name == "empty":
+        return np.zeros((64, 96), np.uint8)
+    if name == "full":
+        return np.full((64, 96), 255, np.uint8)
+    m = np.zeros((192, 768), np.uint8)
+    if name == "tile_boundary":  # unaligned height, blobs across col 256
+        m = np.zeros((130, 280), np.uint8)
+        m[60:70, 250:265] = 255
+        m[62:66, 10:30] = 255
+        m[126:130, 0:8] = 255
+    elif name == "corner_straddle":  # across row 64 / col 256 corners
+        m[60:70, 250:262] = 255
+        m[126:132, 508:516] = 255
+        m[0:3, 765:768] = 255
+        m[189:192, 0:2] = 255
+    elif name == "serpentine":  # a U across three tile columns and rows
+        m[10:14, 20:700] = 255
+        m[10:180, 690:700] = 255
+        m[170:180, 30:700] = 255
+    elif name == "ring_spiral":  # a ring whose only gap is in the top row
+        m[0:2, :] = 255
+        m[:, 766:768] = 255
+        m[190:192, :] = 255
+        m[:, 0:2] = 255
+        m[0:2, 300:302] = 0
+        m[20:172, 20:22] = 255
+        m[20:22, 20:740] = 255
+    elif name == "stub_bar_arm":  # the minimum key enters from the right
+        m[0:9, 280:284] = 255
+        m[5:9, 10:301] = 255
+        m[5:101, 10:14] = 255
+    elif name == "bridge":  # two arms joined only by their bottom row
+        m = np.zeros((128, 512), np.uint8)
+        m[10, 250:270] = 255
+        m[8, 260:262] = 255
+        m[9, 255:262] = 255
+        m[50:64, 100:103] = 255
+        m[50:64, 200:203] = 255
+        m[63, 100:203] = 255
+    else:
+        raise ValueError(name)
+    return m
+
+
+@pytest.mark.parametrize("connectivity", [8, 4])
+@pytest.mark.parametrize(
+    "scene",
+    ["tile_boundary", "corner_straddle", "serpentine", "ring_spiral",
+     "stub_bar_arm", "bridge", "dense_noise", "blocky", "checker", "empty",
+     "full"],
+)
+def test_ccl_scene_matches_cv2(scene, connectivity):
+    """labels, areas, bounding boxes and centroids equal cv2's; the
+    centroids rebuilt in float64 from the exact integer coordinate sums
+    are bit-equal to cv2's (the contract the exported rows rest on)."""
+    mask = _scene(scene)
+    n_ref, lab_ref, stats_ref, cent_ref = _cv_ccl(mask, connectivity)
+    out = ops.connected_components_with_stats(
+        jnp.asarray(mask[None]), max_components=1024,
+        connectivity=connectivity,
+    )
+    n = n_ref - 1
+    assert int(out["count"][0]) == n
+    np.testing.assert_array_equal(np.asarray(out["labels"][0]), lab_ref)
+    area = np.asarray(out["area"][0, 1 : n + 1])
+    np.testing.assert_array_equal(area, stats_ref[1:, cv2.CC_STAT_AREA])
+    np.testing.assert_array_equal(
+        np.asarray(out["bbox"][0, 1 : n + 1]), stats_ref[1:, :4]
+    )
+    csum = np.asarray(out["centroid_sum"][0, 1 : n + 1]).astype(np.float64)
+    np.testing.assert_array_equal(csum / area[:, None], cent_ref[1:])
+
+
+@pytest.mark.parametrize("alpha", [0.02, 0.05, 0.1, 0.3])
+def test_background_scan_rounds_like_refimpl(alpha):
+    """The running background is bit-equal to refimpl's float32 numpy
+    recurrence (each product rounded, then the sum): a compiler that
+    contracts the update into a fused multiply-add gives other bits."""
+    rng = np.random.default_rng(int(alpha * 100))
+    frames = rng.integers(0, 256, (12, 40, 56)).astype(np.float32)
+    bg0 = rng.integers(0, 256, (40, 56)).astype(np.float32)
+    got = np.asarray(ops.background_scan(bg0, frames, alpha))
+    a = np.float32(alpha)
+    b, want = bg0, []
+    for f in frames:
+        b = (np.float32(1) - a) * b + a * f
+        want.append(b)
+    np.testing.assert_array_equal(got, np.stack(want))
+
+
+@pytest.mark.parametrize("cap", [1, 3, 7])
+def test_ccl_capacity_keeps_first_components(cap):
+    """Components past max_components are background in labels and
+    absent from the stats; the first `cap` keep cv2's ids and exact
+    stats, and count saturates at the capacity."""
+    mask = _scene("blocky")
+    n_ref, lab_ref, stats_ref, cent_ref = _cv_ccl(mask)
+    assert n_ref - 1 > cap
+    out = ops.connected_components_with_stats(
+        jnp.asarray(mask), max_components=cap
+    )
+    assert int(out["count"]) == cap
+    np.testing.assert_array_equal(
+        np.asarray(out["labels"]), np.where(lab_ref <= cap, lab_ref, 0)
+    )
+    np.testing.assert_array_equal(
+        np.asarray(out["area"][1:]), stats_ref[1 : cap + 1, cv2.CC_STAT_AREA]
+    )
+    np.testing.assert_array_equal(
+        np.asarray(out["bbox"][1:]), stats_ref[1 : cap + 1, :4]
+    )
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_ccl_output_shapes(batched):
+    """The wrapper's static output shapes, squeezed for one frame and
+    batched for several, with the stats-only options zeroing labels and
+    boxes but not the sums."""
+    H, W, C = 30, 44, 5
+    mask = _scene("dense_noise")[:H, :W]
+    x = jnp.asarray(np.stack([mask, mask[::-1]]) if batched else mask)
+    lead = (2,) if batched else ()
+    out = ops.connected_components_with_stats(
+        x, max_components=C, compute_bbox=False, compute_labels=False
+    )
+    shapes = {k: tuple(v.shape) for k, v in out.items()}
+    assert shapes == {
+        "labels": lead + (H, W), "count": lead, "area": lead + (C + 1,),
+        "bbox": lead + (C + 1, 4), "centroid": lead + (C + 1, 2),
+        "centroid_sum": lead + (C + 1, 2),
+    }
+    assert not np.asarray(out["labels"]).any()
+    assert not np.asarray(out["bbox"]).any()
+    full = ops.connected_components_with_stats(x, max_components=C)
+    np.testing.assert_array_equal(
+        np.asarray(out["centroid_sum"]), np.asarray(full["centroid_sum"])
+    )

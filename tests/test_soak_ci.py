@@ -1,7 +1,6 @@
 """CI-scale version of the config-4 soak (bench/soak_100k.py): the same
 kill/resume byte-identity and drift-oracle machinery at toy size on the
-CPU backend (the full 100k-frame 1080p run executes on TPU and records
-SOAK_100K.json)."""
+CPU backend (the full 100k-frame 1080p run executes on the GPU)."""
 
 import importlib.util
 import os

@@ -1,17 +1,17 @@
-"""tpuva — a TPU-native video-analysis framework.
+"""tpuva — a batched, accelerator-resident video-analysis framework.
 
 A ground-up rebuild of the capabilities of the reference research tool
 (david-zwicker/video-analysis, see SURVEY.md): lazy video-iterator IO,
 composable filters, background-subtraction segmentation, blob tracking and
-trajectory export — re-architected for TPU:
+trajectory export — re-architected for JAX/XLA on an accelerator:
 
-- per-frame Python loops become batched ``(N, H, W)`` XLA/Pallas programs,
+- per-frame Python loops become batched ``(N, H, W)`` XLA programs,
 - sequential state (background model, tracker) rides ``lax.scan`` carries,
 - multi-stream parallelism is a ``shard_map`` over a ``('stream',)`` mesh,
 - host decode is pipelined with device compute via double-buffered staging.
 
 Layer map (SURVEY.md §1.2):
-  T0  tpuva.ops        — XLA/Pallas kernels on frame batches
+  T0  tpuva.ops        — XLA ops on frame batches
   T1  tpuva.io         — host decode + staging (reference: video/io/)
   T2  tpuva.filters    — filter-graph API (reference: video/filters.py)
   T3  tpuva.ops.label  — segmentation + per-blob stats

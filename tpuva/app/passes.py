@@ -33,7 +33,7 @@ DEFAULTS = Parameters(
         "pass2": {"max_gap": 10, "max_dist": 40.0, "min_length": 3,
                   "smooth_window": 0, "interpolate": True},
         "pass4": {"enabled": False, "trail": 25},
-        "pipeline": {"use_pallas": False, "checkpoint_every": 50},
+        "pipeline": {"checkpoint_every": 50},
     }
 )
 
@@ -74,7 +74,6 @@ class TrackingProject:
             self.cfg,
             checkpoint_path=self.path("pass1_state.npz"),
             checkpoint_every=self.params["pipeline.checkpoint_every"],
-            use_pallas=self.params["pipeline.use_pallas"],
         )
         rows = sp.run(video, background0=background0, resume=resume)
         write_tracks_hdf5(out, rows)

@@ -1,7 +1,7 @@
 """Installed command-line entry point (SURVEY.md §1.1 L5: the layer
 "above: user/CLI"). Mirrors the reference workflow — open video -> filter
 chain -> multi-pass tracking -> HDF5/CSV/report/debug movie — with the
-compute on TPU when one is available.
+compute on JAX's default device.
 
 Usage (installed script `tpuva` or `python -m tpuva`):
 
@@ -19,7 +19,7 @@ import sys
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="tpuva",
-        description="TPU-native video analysis: segment + track + export",
+        description="Batched video analysis: segment + track + export",
     )
     ap.add_argument("video", nargs="?", help="video file / glob / image dir")
     ap.add_argument("out_dir")
@@ -27,8 +27,6 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--threshold", type=float, default=30.0)
     ap.add_argument("--min-area", type=int, default=50)
     ap.add_argument("--alpha", type=float, default=0.02)
-    ap.add_argument("--pallas", action="store_true",
-                    help="use the fused TPU kernels")
     ap.add_argument("--movie", action="store_true",
                     help="write an annotated debug movie")
     return ap
@@ -76,7 +74,6 @@ def main(argv=None) -> int:
         args.out_dir,
         cfg,
         overrides={
-            "pipeline": {"use_pallas": args.pallas},
             "pass4": {"enabled": args.movie},
         },
     )

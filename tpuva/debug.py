@@ -1,7 +1,7 @@
 """Interactive/debug display helpers (reference: video/debug.py —
 show_image / show_video windows, SURVEY.md §2.1).
 
-Headless-safe: with no display available (the normal case on a TPU host),
+Headless-safe: with no display available (the normal case on a compute host),
 images are written to files under TPUVA_DEBUG_DIR (default ./debug_out)
 instead of opening windows.
 """

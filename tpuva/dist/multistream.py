@@ -8,9 +8,9 @@ own chip; `shard_map` over a ('stream',) mesh runs the identical jitted
 batch program per shard with zero cross-chip traffic in steady state
 (SURVEY.md §5.8) — results are merged on host per flush.
 
-On a single host without 8 real chips, the same code runs on a simulated
-CPU mesh (XLA_FLAGS=--xla_force_host_platform_device_count=8, SURVEY.md
-§4.2) and, on one chip, as a vmap over the stream axis
+Without real devices, the same code runs on a simulated CPU mesh
+(XLA_FLAGS=--xla_force_host_platform_device_count=8, SURVEY.md §4.2) and,
+on one device, as a vmap over the stream axis
 (`make_multistream_processor(..., mesh=None)`); equivalence between the
 two is tested.
 """
@@ -25,10 +25,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-try:  # jax >= 0.8
-    from jax import shard_map
-except ImportError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from tpuva.graph.config import PipelineConfig
 from tpuva.graph.pipeline import PipelineCarry, init_carry, process_batch
@@ -64,32 +61,12 @@ def make_multistream_processor(
     mesh: Optional[Mesh] = None,
     parallel_bg: bool = False,
     max_components: int = 64,
-    use_pallas: Optional[bool] = None,
-    ccl_single_pass: bool = False,
 ):
     """Returns fn(carry_stacked, frames (S, N, H, W) uint8) ->
     (carry_stacked, out_stacked).
 
-    mesh=None: single-device vmap over streams (same math, one chip).
-    mesh given: shard_map over ('stream',) — one stream per chip.
-
-    use_pallas: run each stream's segmentation front-end as the fused
-    VMEM-resident Pallas kernel (bit-identical to the jnp path,
-    tests/test_multistream.py). Default (None) = auto: on when the
-    backend is a real TPU and the config fuses — the production v5e-8
-    setting; off on the CPU test mesh, where interpret mode would only
-    slow CI (the pallas-under-shard_map path is still covered by an
-    explicit use_pallas=True CPU-mesh test).
-
-    ccl_single_pass: per-stream gen-8 single-pass tiled CCL + record
-    reconcile instead of the dense CCL — bit-identical rows (pinned under
-    both the mesh and vmap modes by tests/test_single_pass_modes.py);
-    out gains stats_overflow/ccl_converged per stream for the strict
-    contract."""
-    if use_pallas is None:
-        from tpuva.graph.pipeline import _can_fuse
-
-        use_pallas = jax.default_backend() == "tpu" and _can_fuse(cfg)
+    mesh=None: single-device vmap over streams (same math, one device).
+    mesh given: shard_map over ('stream',) — one stream per device."""
 
     def per_stream(carry: PipelineCarry, frames: jnp.ndarray):
         return process_batch(
@@ -99,24 +76,9 @@ def make_multistream_processor(
             parallel_bg=parallel_bg,
             return_masks=False,
             max_components=max_components,
-            use_pallas=use_pallas,
-            ccl_single_pass=ccl_single_pass,
         )
 
     if mesh is None:
-        if use_pallas or ccl_single_pass:
-            # vmap would hand the Pallas kernels (fused front-end and the
-            # single-pass CCL alike) batched ANY-space refs, which Mosaic
-            # rejects (caught by bench/tpu_smoke.py); lax.map
-            # slices one stream per iteration so the kernel sees the same
-            # unbatched shapes as the single-stream path. Streams share
-            # the one chip either way, so the serialization is free.
-            from jax import lax
-
-            def mapped(carry, frames):
-                return lax.map(lambda cf: per_stream(*cf), (carry, frames))
-
-            return jax.jit(mapped)
         return jax.jit(jax.vmap(per_stream))
 
     def shard_fn(carry, frames):
@@ -133,11 +95,8 @@ def make_multistream_processor(
         in_specs=(P("stream"), P("stream")),
         out_specs=(P("stream"), P("stream")),
     )
-    try:  # jax >= 0.8: varying-manual-axes check trips on scalar loop
-        sharded = shard_map(shard_fn, check_vma=False, **specs)
-    except TypeError:  # pragma: no cover - older jax
-        sharded = shard_map(shard_fn, check_rep=False, **specs)
-    return jax.jit(sharded)
+    # the varying-manual-axes check trips on the scalar loop carries
+    return jax.jit(shard_map(shard_fn, check_vma=False, **specs))
 
 
 def merge_stream_rows(rows_by_stream, with_stream: bool = False):

@@ -13,7 +13,7 @@ tpuva.graph.streaming.StreamingPipeline:
     collection -> periodic stacked-carry checkpoints -> merged export
     with stream provenance.
 
-On hosts without S devices the same driver runs the vmap (single-device)
+On a host with one device the same driver runs the vmap (single-device)
 processor; the mesh path is exercised on the simulated 8-device CPU mesh
 (SURVEY.md §4.2).
 """
@@ -69,17 +69,19 @@ class SpatialStreamPipeline(StreamingPipeline):
       snapshot holds the gathered full-frame carry either way).
 
     H must divide by n_chips and the filter halo must fit one band
-    (make_spatial_processor validates). use_pallas and ccl_single_pass
-    are ignored: the band-parallel program is its own device path, and
-    its CCL is already single-sweep-per-band + record-level cross-band
-    reconcile (the same convergence-free structure the single-pass flag
-    selects on the tiled kernel), so there is no multi-pass mode to
-    switch off.
+    (make_spatial_processor validates).
+
+    A band holding more component pieces than its contraction table
+    (max_components columns) raises when strict=True (default) and warns
+    and counts (.overflow_frames) otherwise.
     """
 
-    def __init__(self, cfg: PipelineConfig, n_chips: int, mesh=None, **kw):
+    def __init__(self, cfg: PipelineConfig, n_chips: int, mesh=None,
+                 strict: bool = True, **kw):
         super().__init__(cfg, **kw)
         self.n_chips = n_chips
+        self.strict = strict
+        self.overflow_frames = 0
         self.mesh = mesh if mesh is not None else make_space_mesh(n_chips)
         self._band = NamedSharding(self.mesh, P(None, "space", None))
         self._rows_sh = NamedSharding(self.mesh, P("space", None))
@@ -131,8 +133,7 @@ class SpatialStreamPipeline(StreamingPipeline):
         """stats_overflow means a band held more component PIECES than the
         per-band contraction table (max_components columns): their limb
         sums were dropped, so areas/centroids are inexact for those
-        frames. Different failure mode than the staged path's sparse
-        strips, same strictness contract."""
+        frames."""
         import warnings
 
         if "stats_overflow" not in out:
@@ -235,8 +236,9 @@ class MultiStreamPipeline:
     """Drive S equal-length videos through the data-parallel mesh pipeline.
 
     mesh="auto" builds a ('stream',) mesh when >= n_streams devices are
-    visible, else falls back to the single-device vmap processor (same
-    math, tested equivalent). Each stream's batches are decoded by its own
+    visible and runs the single-device vmap processor (same math, tested
+    equivalent) when one device is; between the two it raises rather than
+    leave devices idle. Each stream's batches are decoded by its own
     thread and staged directly onto its chip; the global (S, N, H, W)
     batch is assembled from the per-chip shards with zero host copies.
 
@@ -258,26 +260,28 @@ class MultiStreamPipeline:
         max_components: int = 64,
         queue_depth: int = 3,
         log: bool = False,
-        use_pallas: Optional[bool] = None,
         row_log_dir: Optional[str] = None,
-        ccl_single_pass: bool = False,
-        strict: bool = True,
     ):
         self.cfg = cfg
         self.n_streams = n_streams
         self.row_log_dir = row_log_dir
         if mesh == "auto":
-            mesh = (
-                make_stream_mesh(n_streams)
-                if len(jax.devices()) >= n_streams
-                else None
-            )
+            n_dev = len(jax.devices())
+            if n_dev >= n_streams:
+                mesh = make_stream_mesh(n_streams)
+            elif n_dev == 1:
+                mesh = None
+            else:
+                raise ValueError(
+                    f"mesh='auto' with {n_streams} streams on {n_dev} "
+                    "devices: a one-stream-per-device mesh needs "
+                    f"{n_streams} devices; pass mesh=None to run every "
+                    "stream on one device"
+                )
         self.mesh = mesh
         self.checkpoint_path = checkpoint_path
         self.checkpoint_every = checkpoint_every
         self.queue_depth = queue_depth
-        self.strict = strict
-        self.overflow_frames = 0
         self.logger = BatchLogger(enabled=log)
         self._fn = make_multistream_processor(
             cfg,
@@ -285,8 +289,6 @@ class MultiStreamPipeline:
             mesh=mesh,
             parallel_bg=parallel_bg,
             max_components=max_components,
-            use_pallas=use_pallas,
-            ccl_single_pass=ccl_single_pass,
         )
 
     # ------------------------------------------------------------- assembly
@@ -436,23 +438,6 @@ class MultiStreamPipeline:
 
         def consume(rec, n):
             # drainer thread: per-stream row collection in step order
-            # (strict errors re-raise at the next submit/flush/close)
-            if "stats_overflow" in rec:
-                ov = np.asarray(rec["stats_overflow"])[:, :n]
-                bad = int((ov > 0).sum())
-                if bad:
-                    self.overflow_frames += bad
-                    msg = (
-                        f"per-stream stats/reconcile capacity overflow on "
-                        f"{bad} frame(s) (max {int(ov.max())} dropped): "
-                        f"raise compact_slots/max_components for this "
-                        f"workload"
-                    )
-                    if self.strict:
-                        raise RuntimeError(msg)
-                    import warnings
-
-                    warnings.warn(msg)
             rows, valid = rec["rows"], rec["row_valid"]
             sums = rec["row_sums"]
             for s in range(rows.shape[0]):
@@ -468,10 +453,9 @@ class MultiStreamPipeline:
                     )
 
         # grouped async collection off-thread (AsyncRowDrainer): ~1 device
-        # round trip per group of steps, overlapped with mesh dispatch
+        # round trip per group of steps, overlapped with mesh dispatch;
+        # 2048-frame groups as in StreamingPipeline.run
         drainer = AsyncRowDrainer(
-            # 2048-frame drain groups per stream step — see
-            # StreamingPipeline.run (bench/stream_probe.py round 5)
             consume, group=max(2, 2048 // cfg.batch),
             max_groups_in_flight=1,
         )

@@ -8,22 +8,21 @@ Layout per chip: a horizontal band of every frame plus the band of the
 background-model carry. Per batch:
 
 1. band halos (blur radius + morphology reach rows) are exchanged with
-   mesh neighbors via `lax.ppermute` over ICI; true image borders
-   reconstruct their REFLECT_101 halo locally;
+   mesh neighbors via `lax.ppermute`; true image borders reconstruct
+   their REFLECT_101 halo locally;
 2. the full filter -> background -> threshold -> morphology front-end runs
-   on the extended band (halo rows recomputed redundantly, exactly like
-   the fused Pallas kernel's overlap scheme), with cv2 border semantics
-   enforced at true image borders only;
+   on the extended band (halo rows recomputed redundantly), with cv2
+   border semantics enforced at true image borders only;
 3. the tail is band-parallel too (round 2 — gen 1 `all_gather`ed full
    masks and replicated it): each chip labels ITS band with GLOBAL scan
    keys, then a fixed-point reconciliation loop exchanges only the 1-row
    band-edge labels via `ppermute` (labels decrease monotonically toward
    the component min, so cross-band propagation is an edge-min + local
-   re-sweep); per-band stats are contracted locally (MXU one-hot limb
+   re-sweep); per-band stats are contracted locally (one-hot limb
    sums against the band's root table) and the tiny (C-entry) tables are
    `all_gather`ed and merged by ascending root key — exactly cv2's id
    order — on every chip. Only the O(max_components) tracker tail is
-   replicated. Per-chip tail work is ~1/n of the frame; ICI carries
+   replicated. Per-device tail work is ~1/n of the frame; the links carry
    2 rows of labels per reconciliation round + one C-row table gather,
    instead of the full H x W x N mask.
 
@@ -41,10 +40,9 @@ from typing import Optional
 import numpy as np
 import jax
 import jax.numpy as jnp
-from jax import lax
+from jax import lax, shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
-from tpuva.dist.multistream import shard_map  # version-compat import
 from tpuva.graph.config import PipelineConfig
 from tpuva.graph.pipeline import (
     PipelineCarry,
@@ -265,7 +263,7 @@ def make_spatial_processor(
         # exactly 1 (the no-change confirm), band-spanning components
         # take O(bands the component chains through) — surfaced per batch
         # as out["tp_recon_rounds"] so pathological scenes are visible.
-        # ICI traffic bound: per round, 2 rows x W x 4 B per chip pair
+        # link traffic bound: per round, 2 rows x W x 4 B per device pair
         # (the edge labels) — ~15 KB/round at 1080p, negligible vs the
         # all_gather of the C-entry tables in the merge.
         lab, _, recon_rounds = lax.while_loop(
@@ -305,18 +303,20 @@ def make_spatial_processor(
             ],
             axis=-1,
         ).astype(jnp.bfloat16)  # (Hb*W, 7)
+        # exact on any device: 0/1 and <= 63 operands are bf16-exact, and
+        # f32 accumulation holds the limb sums exactly below 2^24
         sums = jnp.einsum(
             "npc,pk->nck", eq, payload, preferred_element_type=jnp.float32
         )  # (N, C, 7)
 
         # ---- tiny replicated merge: gather C-entry tables, aggregate
         # split components by key, rank ascending (= cv2 id order).
-        # The (SC)^2 equality matrix is deliberate, not an oversight:
-        # SC = n_chips * max_components (512 at 8 x 64), so eqm + the agg
-        # einsum are ~N*SC*SC*7 flops (<0.5 GFLOP at batch 128) of
-        # MXU-friendly work, far below one band sweep — a sort-based
-        # merge would save nothing and reintroduce the minor-axis-sort
-        # pitfall (CLAUDE.md).
+        # The (SC)^2 equality matrix is deliberate: SC = n_chips *
+        # max_components (512 at 8 x 64), so eqm + the agg einsum are
+        # ~N*SC*SC*7 flops (<0.5 GFLOP at batch 128), far below one band
+        # sweep. Both merge einsums carry limb sums up to 2^24, which a
+        # default-precision f32 matmul may round (TF32 keeps 10 mantissa
+        # bits), so they run at HIGHEST precision.
         tabs = lax.all_gather(table, "space", axis=0)  # (S, N, C)
         sms = lax.all_gather(sums, "space", axis=0)  # (S, N, C, 7)
         S = n_chips
@@ -329,6 +329,7 @@ def make_spatial_processor(
         agg = jnp.einsum(
             "nij,nik->njk", eqm.astype(jnp.float32), V,
             preferred_element_type=jnp.float32,
+            precision=lax.Precision.HIGHEST,
         )  # exact: integer limb sums < 2^24
         valid = is_first & (K <= sent)
         rank = jnp.sum(
@@ -343,9 +344,16 @@ def make_spatial_processor(
         out_sums = jnp.einsum(
             "ncj,njk->nck", oh.astype(jnp.float32), agg,
             preferred_element_type=jnp.float32,
+            precision=lax.Precision.HIGHEST,
+        ).astype(jnp.int32)
+        sx = out_sums[..., 1] + (out_sums[..., 2] << 6) + (
+            out_sums[..., 3] << 12
+        )
+        sy = out_sums[..., 4] + (out_sums[..., 5] << 6) + (
+            out_sums[..., 6] << 12
         )
         count, area, centroid, csum, _present = _assemble_stats(
-            out_sums, n_roots, H, W, C
+            out_sums[..., 0], sx, sy, n_roots, H, W, C
         )
         stats = {
             "count": count,
@@ -394,8 +402,4 @@ def make_spatial_processor(
         in_specs=(carry_specs, P(None, "space", None)),
         out_specs=(carry_specs, out_specs),
     )
-    try:
-        fn = shard_map(shard_fn, check_vma=False, **specs)
-    except TypeError:  # pragma: no cover
-        fn = shard_map(shard_fn, check_rep=False, **specs)
-    return jax.jit(fn)
+    return jax.jit(shard_map(shard_fn, check_vma=False, **specs))

@@ -1,6 +1,6 @@
 """Trajectory CSV export (component I, SURVEY.md §2.3).
 
-One shared writer is used by both the TPU pipeline and refimpl so that
+One shared writer is used by both the device pipeline and refimpl so that
 "bit-comparable trajectory CSV outputs" (BASELINE.json:5) reduces to value
 equality: identical rows produce identical bytes.
 

@@ -1,6 +1,6 @@
 """Trajectory HDF5 export (component I, SURVEY.md §2.3; BASELINE.json:10).
 
-Layout (deterministic; same writer used by refimpl and the TPU pipeline):
+Layout (deterministic; same writer used by refimpl and the device pipeline):
   /trajectories : (N, 5) float64, rows sorted by (track_id, frame),
                   columns attr = ['track_id','frame','x','y','area']
   /tracks       : (K, 4) float64 summary, one row per track:

@@ -8,7 +8,7 @@ and every filter IS a video (VideoBase), so anything that consumes a video
 consumes a filter chain (BASELINE.json:5 "same filter/segmenter
 composition").
 
-TPU-native execution model (T2, SURVEY.md §1.2): each filter declares a
+Batched execution model (T2, SURVEY.md §1.2): each filter declares a
 pure jax `batch_transform(batch, carry) -> (batch, carry)` over
 (N, H, W[, 3]) stacks. Iteration and `iter_batches` run the whole nested
 chain as ONE jitted device program per batch — the reference's
@@ -31,7 +31,7 @@ import jax.numpy as jnp
 
 from tpuva.io.base import VideoBase
 from tpuva.ops import gaussian_blur, gaussian_blur_u8, median_blur
-from tpuva.ops.background import background_update
+from tpuva.ops.background import background_scan
 
 # BGR -> gray weights (OpenCV convention: x is BGR channel order)
 _BGR_WEIGHTS = np.array([0.114, 0.587, 0.299], np.float32)
@@ -423,10 +423,5 @@ class FilterBackground(FilterBase):
         bg, valid = carry
         f = batch.astype(jnp.float32)
         bg0 = jnp.where(valid, bg, f[0])
-
-        def step(b, x):
-            b = background_update(b, x, self.alpha)
-            return b, jnp.abs(x - b)
-
-        bg_out, diffs = jax.lax.scan(step, bg0, f)
-        return _round_u8(diffs), (bg_out, jnp.bool_(True))
+        bgs = background_scan(bg0, f, self.alpha)
+        return _round_u8(jnp.abs(f - bgs)), (bgs[-1], jnp.bool_(True))

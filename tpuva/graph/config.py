@@ -6,7 +6,7 @@ typed dataclass tree serializable to JSON so that "same filter/segmenter
 composition" (BASELINE.json:5) is expressible as data.
 
 This module is deliberately import-light (no jax/cv2): it is shared between
-the TPU pipeline (tpuva.graph.pipeline) and the NumPy/OpenCV oracle
+the device pipeline (tpuva.graph.pipeline) and the NumPy/OpenCV oracle
 (refimpl.pipeline), which must agree on semantics knob-for-knob.
 
 Canonical pipeline order (pinned; both implementations follow it exactly):

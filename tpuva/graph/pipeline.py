@@ -28,7 +28,7 @@ from jax import lax
 
 from tpuva.graph.config import PipelineConfig
 from tpuva.ops import (
-    background_update,
+    background_scan,
     connected_components_with_stats,
     gaussian_blur_u8,
     median_blur,
@@ -91,12 +91,7 @@ def background_trajectory(
     over affine maps (s, o) with B_t = s_t * B_0 + o_t — O(log N) depth.
     """
     if not parallel:
-        def step(b, f):
-            b = background_update(b, f, alpha)
-            return b, b
-
-        _, bgs = lax.scan(step, bg0, frames)
-        return bgs
+        return background_scan(bg0, frames, alpha)
     a = jnp.float32(alpha)
     s = jnp.full((frames.shape[0], 1, 1), 1 - a, jnp.float32)
     o = a * frames
@@ -108,234 +103,6 @@ def background_trajectory(
 
     S, O = lax.associative_scan(combine, (s, o), axis=0)
     return S * bg0[None] + O
-
-
-def _can_fuse(cfg: PipelineConfig) -> bool:
-    """The Pallas fused front-end covers blur+median(k=3)+bg+threshold+
-    morph in one kernel. Otsu thresholding needs a whole-frame histogram
-    — a global statistic the tile-local single-pass kernel cannot see —
-    so it takes the STAGED Otsu route instead (_otsu_mask_stage: fused
-    diff emit → MXU histogram + per-frame threshold → jnp morphology);
-    see _can_stage."""
-    return (
-        cfg.median is None or cfg.median.ksize in (1, 3)
-    ) and cfg.segment.threshold != "otsu"
-
-
-def _can_stage(cfg: PipelineConfig) -> bool:
-    """Configs the staged TPU path (Pallas front-end + raw CCL tail)
-    covers: everything _can_fuse does, plus Otsu via the diff-emit
-    front-end."""
-    return cfg.median is None or cfg.median.ksize in (1, 3)
-
-
-@partial(jax.jit, static_argnames=("cfg",))
-def _otsu_mask_stage(cfg: PipelineConfig, carry: "PipelineCarry", frames):
-    """Staged Otsu front-end: the fused Pallas kernel emits rounded
-    |F - B| uint8 magnitudes (VMEM-resident blur/median/background — the
-    expensive float work), a tiny MXU-histogram dispatch finds each
-    frame's Otsu threshold, and the jnp morphology ops finish the mask.
-    Bit-identical to process_batch's jnp Otsu path (same rint quantize,
-    same strict compare, same cv2 morphology)."""
-    from tpuva.ops.filters import otsu_threshold
-    from tpuva.ops.pallas import fused_segment
-
-    bg0 = jnp.where(
-        carry.bg_valid,
-        carry.bg,
-        filter_batch(cfg, frames[:1].astype(jnp.float32))[0],
-    )
-    du8, bg_last = fused_segment(
-        frames,
-        bg0,
-        alpha=cfg.background.alpha,
-        threshold=0.0,
-        blur_ksize=cfg.blur.ksize if cfg.blur else 0,
-        blur_sigma=cfg.blur.sigma if cfg.blur else 0.0,
-        median_ksize=(
-            cfg.median.ksize if cfg.median and cfg.median.ksize > 1 else 0
-        ),
-        emit="diff",
-    )
-    thr = otsu_threshold(du8)  # (N,) float32
-    mask = jnp.where(
-        du8.astype(jnp.int32) > thr.astype(jnp.int32)[:, None, None],
-        jnp.uint8(255),
-        jnp.uint8(0),
-    )
-    if cfg.morph_open is not None:
-        se = structuring_element(cfg.morph_open.shape, cfg.morph_open.ksize)
-        mask = morph_open(mask, se, cfg.morph_open.iterations)
-    if cfg.morph_close is not None:
-        se = structuring_element(
-            cfg.morph_close.shape, cfg.morph_close.ksize
-        )
-        mask = morph_close(mask, se, cfg.morph_close.iterations)
-    return mask, bg_last
-
-
-@partial(jax.jit, static_argnames=("cfg", "padded_occ"))
-def _fused_mask_stage(
-    cfg: PipelineConfig, carry: "PipelineCarry", frames,
-    padded_occ: bool = False,
-):
-    from tpuva.ops.pallas import fused_segment
-
-    bg0 = jnp.where(
-        carry.bg_valid,
-        carry.bg,
-        filter_batch(cfg, frames[:1].astype(jnp.float32))[0],
-    )
-    return fused_segment(
-        frames,
-        bg0,
-        padded_occ=padded_occ,
-        alpha=cfg.background.alpha,
-        threshold=cfg.segment.threshold,
-        blur_ksize=cfg.blur.ksize if cfg.blur else 0,
-        blur_sigma=cfg.blur.sigma if cfg.blur else 0.0,
-        median_ksize=(
-            cfg.median.ksize if cfg.median and cfg.median.ksize > 1 else 0
-        ),
-        open_shape=cfg.morph_open.shape if cfg.morph_open else "rect",
-        open_ksize=cfg.morph_open.ksize if cfg.morph_open else 0,
-        open_iters=cfg.morph_open.iterations if cfg.morph_open else 1,
-        close_shape=cfg.morph_close.shape if cfg.morph_close else "rect",
-        close_ksize=cfg.morph_close.ksize if cfg.morph_close else 0,
-        close_iters=cfg.morph_close.iterations if cfg.morph_close else 1,
-    )
-
-
-@partial(
-    jax.jit,
-    static_argnames=(
-        "cfg", "return_masks", "max_components", "sparse_strips", "H", "W",
-        "compact", "compact_slots", "return_labels", "ccl_single_pass",
-    ),
-)
-def _post_mask_stage(
-    cfg: PipelineConfig,
-    carry: "PipelineCarry",
-    mask: jnp.ndarray,
-    bg_last: jnp.ndarray,
-    return_masks: bool = False,
-    max_components: int = 64,
-    sparse_strips: int = 256,
-    occ128: jnp.ndarray | None = None,
-    H: int | None = None,
-    W: int | None = None,
-    compact: bool = True,
-    compact_slots: int = 48,
-    return_labels: bool = False,
-    ccl_single_pass: bool = False,
-):
-    """Tiled CCL + stats + detection extraction + tracker scan (staged TPU
-    path — see process_batch_staged).
-
-    ccl_single_pass=True (compact path only) runs the gen-8 single-pass
-    kernel + record-level reconcile (_stats_from_compact(reconcile=True))
-    — bit-identical stats at a scene-shape-independent kernel cost (the
-    multi-pass frontier re-sweeps cost ~7.7 ms/batch-256 on the 1080p
-    bench scene and ~28 ms on corner-straddle scenes). Reconcile capacity
-    events are folded into out["stats_overflow"] so the existing strict
-    checks surface them; return_labels forces the multi-pass kernel (the
-    raw buffer must be converged for labels_from_raw).
-
-    Gen-5 tail (compact=True, default): the RAW-buffer CCL kernel also
-    DMAs each occupied tile's converged block into a dense per-frame
-    compact buffer, and _stats_from_compact reads label data from it with
-    ZERO gathers (the raw path's strip gather + selection chains were
-    ~17 ms of the 81 ms staged batch at 1080p/256). Capacity is
-    tile-granular: ceil(sparse_strips / 32) tiles ≈ the same foreground
-    budget as the sparse-strip path.
-
-    Gen-4 tail (compact=False): the RAW-buffer CCL kernel (no label-map
-    fill, no epilogue pass) feeds _stats_from_raw, whose only label reads
-    are row gathers of occupied strips.
-
-    Two entry shapes:
-    - occ128 given (fast path): `mask` is the fused kernel's UNCROPPED
-      (N, Hp, Wp) padded mask (zero outside the true (H, W) image) and
-      occ128 its in-kernel (2-row x 128-col) occupancy — no full-image op
-      of any kind runs here; the (2x256) strip occupancy is a pairwise max
-      over the tiny occ128 array.
-    - occ128 None: `mask` is the cropped (N, H, W) mask; it is zero-padded
-      to the CCL grid and occupancy is reduced from it (one full-image
-      pass). Used when the fused grid doesn't align to the CCL tiling and
-      by non-fused callers.
-
-    Stats use the sparse-strip contraction (capacity `sparse_strips` x 512
-    foreground pixels per frame); frames exceeding it are reported in
-    out["stats_overflow"] (their stats silently drop the excess strips —
-    raise the capacity if the workload is that dense)."""
-    from tpuva.ops.label import _stats_from_compact, _stats_from_raw
-    from tpuva.ops.pallas.ccl import label_components_tiled_raw
-
-    if occ128 is not None:
-        N = mask.shape[0]
-        mp = mask
-        mfin = mask[:, :H, :W]  # DCE'd unless return_masks
-        Nn, Hb, Qc2 = occ128.shape
-        strip_occ = occ128.reshape(Nn, Hb, Qc2 // 2, 2).max(axis=3)
-    else:
-        N, H, W = mask.shape
-        mfin = mask
-        Hp, Wp = -(-H // 64) * 64, -(-W // 256) * 256
-        mp = (
-            mask
-            if (Hp, Wp) == (H, W)
-            else jnp.pad(mask, ((0, 0), (0, Hp - H), (0, Wp - W)))
-        )
-        # per-(2-row x 256-col) scan-key-strip occupancy: the shared
-        # source of truth for CCL tile skipping, halo masking, AND the
-        # stats gather
-        o1 = lax.reduce_window(
-            mp, jnp.uint8(0), lax.max, (1, 1, 256), (1, 1, 256), "VALID"
-        )
-        strip_occ = lax.reduce_window(
-            o1, jnp.uint8(0), lax.max, (1, 2, 1), (1, 2, 1), "VALID"
-        )
-    if compact:
-        # 16-row slots: capacity = foreground scattered across up to
-        # `compact_slots` distinct 16-row bands. The stats contraction
-        # cost scales with slots (8 strips each), so this is a knob, not
-        # a free ceiling: 48 covers 6-8 blob-sized objects straddling
-        # band boundaries with margin (bench scene max 27, soak scene
-        # ~36 worst case); strict mode raises with the knob's name when
-        # a denser scene needs more.
-        sp = ccl_single_pass and not return_labels
-        labraw, cbuf, ccl_converged = label_components_tiled_raw(
-            mp, strip_occ, H, W, compact_slots=compact_slots,
-            single_pass=sp,
-        )
-        stats = _stats_from_compact(
-            cbuf, strip_occ, H, W, max_components=max_components,
-            reconcile=sp,
-        )
-    else:
-        labraw, ccl_converged = label_components_tiled_raw(
-            mp, strip_occ, H, W
-        )
-        stats = _stats_from_raw(
-            labraw, strip_occ, H, W,
-            max_components=max_components, sparse_strips=sparse_strips,
-        )
-    carry2, out = _finish_batch(
-        cfg, carry, stats, mfin, bg_last, return_masks
-    )
-    out["stats_overflow"] = stats["overflow"] + stats.get(
-        "reconcile_overflow", jnp.zeros_like(stats["overflow"])
-    )
-    out["ccl_converged"] = ccl_converged
-    if return_labels:
-        # opt-in dense cv2-id label maps (full-image op; annotation /
-        # measurement consumers only — the tracking path never pays it)
-        from tpuva.ops.label import labels_from_raw
-
-        out["labels"] = labels_from_raw(
-            labraw, strip_occ, stats["root_table"], H, W
-        )
-    return carry2, out
 
 
 def _finish_batch(cfg, carry, stats, mask, bg_last, return_masks):
@@ -358,10 +125,9 @@ def _finish_batch(cfg, carry, stats, mask, bg_last, return_masks):
 
     N = mask.shape[0]
     fidx = carry.frame_idx + jnp.arange(N, dtype=jnp.int32)
-    # unroll: the scan loop itself costs ~14 us/step at batch 256 on v5e
-    # (measured, bench/track_probe.py) — ~2.5x the tracker body. Unrolling
-    # 8 steps per iteration amortizes that sequencing to ~2 us/frame with
-    # an identical trace per step (no semantic change).
+    # unroll: 8 tracker steps per loop iteration amortize the scan's
+    # per-step sequencing with an identical trace per step (no semantic
+    # change); the factor is untuned on the GPU
     tstate, (rows, row_valid) = lax.scan(
         step, carry.track, (dets, det_valid, fidx),
         unroll=8 if N % 8 == 0 else 1,
@@ -386,78 +152,9 @@ def _finish_batch(cfg, carry, stats, mask, bg_last, return_masks):
     return new_carry, out
 
 
-def process_batch_staged(
-    cfg: PipelineConfig,
-    carry: "PipelineCarry",
-    frames: jnp.ndarray,
-    return_masks: bool = False,
-    max_components: int = 64,
-    sparse_strips: int = 256,
-    compact_slots: int = 48,
-    return_labels: bool = False,
-    ccl_single_pass: bool = False,
-):
-    """TPU fast path: the pipeline as two jitted dispatches (Pallas fused
-    mask kernel; then tiled CCL + stats + tracker).
-
-    Dispatches chain asynchronously on device — the host never blocks
-    between them — while keeping per-stage XLA programs small: compiling
-    the fused mask kernel together with the CCL while-loop sends compile
-    time superlinear (~200s vs ~20s total for the stages).
-
-    When the fused kernel's padded grid aligns to the CCL tiling (64-row /
-    256-col; true at 1080p), the stages hand off the UNCROPPED padded mask
-    plus in-kernel strip occupancy — no crop, re-pad, or full-image
-    occupancy reduction between them."""
-    from tpuva.ops.pallas.fused_segment import fused_tile
-
-    if ccl_single_pass and return_labels:
-        import warnings
-
-        warnings.warn(
-            "return_labels=True forces the multi-pass CCL kernel: dense "
-            "label maps need a converged raw buffer, which the "
-            "single-pass kernel deliberately does not produce "
-            "(ops/pallas/ccl.py). ccl_single_pass is ignored for this "
-            "call; stats/tracking outputs are identical either way.",
-            stacklevel=2,
-        )
-    N, H, W = frames.shape
-    if cfg.segment.threshold == "otsu":
-        mask, bg_last = _otsu_mask_stage(cfg, carry, frames)
-        return _post_mask_stage(
-            cfg, carry, mask, bg_last,
-            return_masks=return_masks, max_components=max_components,
-            sparse_strips=sparse_strips, compact_slots=compact_slots,
-            return_labels=return_labels, ccl_single_pass=ccl_single_pass,
-        )
-    _th, _tw, Hp, Wp = fused_tile(H, W)
-    if Hp % 64 == 0 and Wp % 256 == 0:
-        mask, bg_last, occ128 = _fused_mask_stage(
-            cfg, carry, frames, padded_occ=True
-        )
-        return _post_mask_stage(
-            cfg, carry, mask, bg_last,
-            return_masks=return_masks, max_components=max_components,
-            sparse_strips=sparse_strips, occ128=occ128, H=H, W=W,
-            compact_slots=compact_slots, return_labels=return_labels,
-            ccl_single_pass=ccl_single_pass,
-        )
-    mask, bg_last = _fused_mask_stage(cfg, carry, frames)
-    return _post_mask_stage(
-        cfg, carry, mask, bg_last,
-        return_masks=return_masks, max_components=max_components,
-        sparse_strips=sparse_strips, compact_slots=compact_slots,
-        return_labels=return_labels, ccl_single_pass=ccl_single_pass,
-    )
-
-
 @partial(
     jax.jit,
-    static_argnames=(
-        "cfg", "parallel_bg", "return_masks", "max_components",
-        "use_pallas", "ccl_single_pass", "compact_slots",
-    ),
+    static_argnames=("cfg", "parallel_bg", "return_masks", "max_components"),
 )
 def process_batch(
     cfg: PipelineConfig,
@@ -466,24 +163,8 @@ def process_batch(
     parallel_bg: bool = False,
     return_masks: bool = False,
     max_components: int = 64,
-    use_pallas: bool = False,
-    ccl_single_pass: bool = False,
-    compact_slots: int = 48,
 ):
     """One fused device program over an N-frame batch.
-
-    use_pallas=True runs the segmentation front-end as the VMEM-resident
-    Pallas kernel (tpuva.ops.pallas.fused_segment — bit-identical to the
-    jnp path, ~free vs dispatch overhead); requires cfg.median is None.
-
-    ccl_single_pass=True swaps the dense CCL for the gen-8 tiled
-    single-pass kernel + record-level reconcile (same path as the staged
-    pipeline's flag — see _post_mask_stage): bit-identical rows at a
-    scene-shape-independent kernel cost, with out gaining the
-    "stats_overflow" / "ccl_converged" strictness fields. This makes the
-    single-pass mode available everywhere process_batch runs — incl.
-    per-stream under the ('stream',) shard_map and vmap multistream
-    processors (tests/test_single_pass_modes.py).
 
     Returns (new_carry, out) with out:
       rows      (N, max_blobs, 5) float32 — (track_id, frame, x, y, area)
@@ -491,40 +172,29 @@ def process_batch(
       n_det     (N,) int32
       masks     (N, H, W) uint8, only if return_masks
     """
-    if use_pallas and _can_fuse(cfg):
-        mask, bg_last = _fused_mask_stage(cfg, carry, frames)
-    else:
-        f = filter_batch(cfg, frames.astype(jnp.float32))
-        bg0 = jnp.where(carry.bg_valid, carry.bg, f[0])
-        bgs = background_trajectory(bg0, f, cfg.background.alpha, parallel_bg)
-        bg_last = bgs[-1]
-        diff = jnp.abs(f - bgs)
-        if cfg.segment.threshold == "otsu":
-            from tpuva.ops.filters import otsu_threshold
+    f = filter_batch(cfg, frames.astype(jnp.float32))
+    bg0 = jnp.where(carry.bg_valid, carry.bg, f[0])
+    bgs = background_trajectory(bg0, f, cfg.background.alpha, parallel_bg)
+    bg_last = bgs[-1]
+    diff = jnp.abs(f - bgs)
+    if cfg.segment.threshold == "otsu":
+        from tpuva.ops.filters import otsu_threshold
 
-            du8 = jnp.clip(jnp.rint(diff), 0, 255).astype(jnp.uint8)
-            thr = otsu_threshold(du8)  # (N,) per-frame
-            mask = jnp.where(
-                du8.astype(jnp.int32) > thr.astype(jnp.int32)[:, None, None],
-                jnp.uint8(255),
-                jnp.uint8(0),
-            )
-        else:
-            mask = threshold(diff, cfg.segment.threshold)
-        if cfg.morph_open is not None:
-            se = structuring_element(cfg.morph_open.shape, cfg.morph_open.ksize)
-            mask = morph_open(mask, se, cfg.morph_open.iterations)
-        if cfg.morph_close is not None:
-            se = structuring_element(
-                cfg.morph_close.shape, cfg.morph_close.ksize
-            )
-            mask = morph_close(mask, se, cfg.morph_close.iterations)
-    if ccl_single_pass:
-        return _post_mask_stage(
-            cfg, carry, mask, bg_last, return_masks=return_masks,
-            max_components=max_components, compact_slots=compact_slots,
-            ccl_single_pass=True,
+        du8 = jnp.clip(jnp.rint(diff), 0, 255).astype(jnp.uint8)
+        thr = otsu_threshold(du8)  # (N,) per-frame
+        mask = jnp.where(
+            du8.astype(jnp.int32) > thr.astype(jnp.int32)[:, None, None],
+            jnp.uint8(255),
+            jnp.uint8(0),
         )
+    else:
+        mask = threshold(diff, cfg.segment.threshold)
+    if cfg.morph_open is not None:
+        se = structuring_element(cfg.morph_open.shape, cfg.morph_open.ksize)
+        mask = morph_open(mask, se, cfg.morph_open.iterations)
+    if cfg.morph_close is not None:
+        se = structuring_element(cfg.morph_close.shape, cfg.morph_close.ksize)
+        mask = morph_close(mask, se, cfg.morph_close.iterations)
     stats = connected_components_with_stats(
         mask,
         max_components=max_components,
@@ -581,8 +251,6 @@ def process_clip(
     parallel_bg: bool = False,
     return_masks: bool = False,
     max_components: int = 64,
-    use_pallas: bool = False,
-    ccl_single_pass: bool = False,
 ):
     """Host convenience driver: run a whole (T, H, W) uint8 clip through
     batched device processing. Returns (rows, final_carry, masks-or-None).
@@ -590,10 +258,6 @@ def process_clip(
     The final partial batch is padded by repeating the last frame; padded
     frames' rows are dropped (tracker/background perturbation past the clip
     end is discarded with the final carry).
-
-    The staged TPU path's capacity diagnostics (sparse-strip stats
-    overflow, CCL round cap) raise a RuntimeError — silent accuracy loss
-    is never returned.
     """
     T, H, W = clip.shape
     N = cfg.batch
@@ -606,38 +270,14 @@ def process_clip(
         if n < N:
             pad = np.repeat(chunk[-1:], N - n, axis=0)
             chunk = np.concatenate([chunk, pad], axis=0)
-        if use_pallas and _can_stage(cfg) and jax.default_backend() == "tpu":
-            carry, out = process_batch_staged(
-                cfg,
-                carry,
-                jnp.asarray(chunk),
-                return_masks=return_masks,
-                max_components=max_components,
-                ccl_single_pass=ccl_single_pass,
-            )
-        else:
-            carry, out = process_batch(
-                cfg,
-                carry,
-                jnp.asarray(chunk),
-                parallel_bg=parallel_bg,
-                return_masks=return_masks,
-                max_components=max_components,
-                use_pallas=use_pallas,
-                ccl_single_pass=ccl_single_pass,
-            )
-        if "stats_overflow" in out:
-            ov = np.asarray(out["stats_overflow"][:n])
-            if (ov > 0).any():
-                raise RuntimeError(
-                    f"sparse-strip stats overflow on {int((ov > 0).sum())} "
-                    "frame(s) — raise compact_slots/sparse_strips for this "
-                    "workload"
-                )
-        if "ccl_converged" in out and not bool(np.asarray(out["ccl_converged"])):
-            raise RuntimeError(
-                "tiled CCL hit its round cap without converging"
-            )
+        carry, out = process_batch(
+            cfg,
+            carry,
+            jnp.asarray(chunk),
+            parallel_bg=parallel_bg,
+            return_masks=return_masks,
+            max_components=max_components,
+        )
         all_rows.extend(
             collect_rows(
                 out["rows"], out["row_valid"], max_frame=T,

@@ -7,7 +7,7 @@ without caring whether it is a file, a RAM buffer, a slice, a filter chain
 or a cross-process pipe. Frames are HxW (gray) or HxWx3 (BGR) uint8 numpy
 arrays.
 
-TPU-native addition: `iter_batches(n)` yields (n, H, W[, 3]) frame stacks
+Batched addition: `iter_batches(n)` yields (n, H, W[, 3]) frame stacks
 for batched device processing — the bridge from the iterator world to the
 XLA world. Subclasses get a default implementation built on get_frame; IO
 backends override it with faster bulk reads.

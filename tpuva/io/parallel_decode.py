@@ -21,8 +21,7 @@ per-worker stack handle transparently; chunk size can be aligned to file
 boundaries by the caller for zero cross-file seeks.
 
 Decode is CPU-bound C code that releases the GIL, so threads scale with
-host cores (this dev box has ONE core — see bench/decode_probe.py for
-the honest scaling artifact; a real v5e host has dozens).
+host cores (bench/decode_probe.py measures the scaling on a given host).
 """
 
 from __future__ import annotations

@@ -12,7 +12,7 @@ from tpuva.ops.filters import (  # noqa: F401
     structuring_element,
     threshold,
 )
-from tpuva.ops.background import background_update  # noqa: F401
+from tpuva.ops.background import background_scan  # noqa: F401
 from tpuva.ops.distance import (  # noqa: F401
     distance_transform_edt,
     distance_transform_edt_sq,

@@ -1,8 +1,8 @@
 """Running-average background model (component A, SURVEY.md §2.3).
 
 cv2.accumulateWeighted semantics (verified §8): ``B <- (1-alpha)*B +
-alpha*F`` with a float32 accumulator. The expression form is pinned
-identically in refimpl.pipeline so both paths round the same way.
+alpha*F`` with a float32 accumulator. refimpl.pipeline pins the rounding:
+each product rounds to float32, then their sum rounds.
 
 The model is carried as `lax.scan` state across frame batches
 (BASELINE.json:10 "rolling background model"), never leaving the device.
@@ -11,17 +11,26 @@ The model is carried as `lax.scan` state across frame batches
 from __future__ import annotations
 
 import jax.numpy as jnp
+from jax import lax
 
 
-def background_update(bg: jnp.ndarray, frame: jnp.ndarray, alpha) -> jnp.ndarray:
-    """One update step. bg, frame: (..., H, W) float32."""
+def background_scan(bg0: jnp.ndarray, frames: jnp.ndarray, alpha) -> jnp.ndarray:
+    """All post-update backgrounds B_1..B_N of an (N, H, W) float32 batch,
+    rounded as refimpl rounds them.
+
+    The two products live in separate arrays: alpha*F for the whole batch
+    before the scan, and (1-alpha)*B carried from each step to the next.
+    No addition then sees a multiplication it could contract into a fused
+    multiply-add, which rounds once instead of twice and changes the bits
+    (XLA's CPU backend contracts ``c*B + a*F`` written in one expression).
+    A one-step scan may be inlined by the compiler and lose that
+    separation, so exactness is pinned for N >= 2."""
     a = jnp.float32(alpha)
-    return (jnp.float32(1) - a) * bg + a * frame
+    c = jnp.float32(1) - a
 
+    def step(p, q):
+        b = p + q
+        return c * b, b
 
-def background_update_masked(
-    bg: jnp.ndarray, frame: jnp.ndarray, alpha, mask: jnp.ndarray
-) -> jnp.ndarray:
-    """cv2.accumulateWeighted's optional update mask: pixels where mask is
-    False keep the old background."""
-    return jnp.where(mask, background_update(bg, frame, alpha), bg)
+    _, bgs = lax.scan(step, c * bg0, a * frames)
+    return bgs

@@ -3,7 +3,7 @@ bits" row — the last as-needed kernel; reference semantics are
 `scipy.ndimage.distance_transform_edt` / cv2 DIST_L2+DIST_MASK_PRECISE:
 for every nonzero pixel, the distance to the nearest zero pixel).
 
-TPU-native design: the squared EDT is separable — a 1D squared-distance
+Design: the squared EDT is separable — a 1D squared-distance
 transform down the columns followed by a min-plus convolution with the
 parabola d^2 along the rows (Felzenszwalb & Huttenlocher 2004). Both 1D
 stages are computed here as ITERATED 3-POINT PARABOLIC EROSIONS: pass k
@@ -32,7 +32,7 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
-_INF = jnp.float32(jnp.inf)
+_INF = float("inf")  # a Python float: a jnp constant would start a backend
 
 
 def _edt_pass_axis(d: jnp.ndarray, axis: int):

@@ -115,9 +115,7 @@ def is_binomial_blur(ksize: int, sigma: float) -> bool:
     the box-cascade fast path below applies. ksize 3 ([1,2,1]/4) and 5
     ([1,4,6,4,1]/16) only: cv2's ksize==7 table {2,7,14,18}/64 and
     ksize==9 table {4,13,30,51,60}/256 are NOT binomial (those would be
-    {1,6,15,20}/64 and {1,8,28,56,70}/256). Shared by the jnp path and
-    the fused Pallas kernel so both twins always pick the same algorithm
-    (their bit-equality contract)."""
+    {1,6,15,20}/64 and {1,8,28,56,70}/256)."""
     return sigma <= 0 and ksize in (3, 5)
 
 
@@ -127,10 +125,8 @@ def _box_cascade_axis(x: jnp.ndarray, ksize: int, axis: int) -> jnp.ndarray:
     shrink by 1 per pass — centered by construction). For integer-valued
     inputs (the pipeline blurs u8-cast frames) every partial sum is an
     integer <= 255 * 2^(k-1) < 2^24, so the result is EXACT — no float
-    rounding anywhere — and therefore independent of summation order,
-    which is what lets the Pallas twin (rolls instead of slices) stay
-    bit-identical for free. ~27% fewer VPU ops than the weighted form
-    (pure adds, no per-tap multiplies)."""
+    rounding anywhere — and therefore independent of summation order.
+    Pure adds, no per-tap multiplies."""
     r = ksize // 2
     pad = [(0, 0)] * x.ndim
     pad[axis] = (r, r)
@@ -152,8 +148,8 @@ def gaussian_blur(x: jnp.ndarray, ksize: int, sigma: float = 0.0) -> jnp.ndarray
     Binomial kernels (sigma<=0, ksize in {3, 5} — exactly what
     is_binomial_blur gates; cv2's k=7 table {2,7,14,18}/64 is NOT
     binomial) run as an exact box cascade (_box_cascade_axis); others as
-    the cv2-ordered weighted correlation. The cascade is bit-exact (and
-    bit-identical to the Pallas twin) only for INTEGER-valued inputs
+    the cv2-ordered weighted correlation. The cascade is bit-exact only
+    for INTEGER-valued inputs
     (u8-cast frames); for non-integer float inputs (e.g. chained after a
     float-producing filter) it differs from the cv2-ordered weighted
     correlation by ulps — within the pinned float-associativity contract.
@@ -266,22 +262,22 @@ def threshold(x: jnp.ndarray, thresh: float, maxval: float = 255.0) -> jnp.ndarr
 
 
 def histogram_u8(x: jnp.ndarray, max_onehot_elems: int = 1 << 24) -> jnp.ndarray:
-    """256-bin histogram of a uint8 image batch WITHOUT a scatter.
+    """256-bin histogram of a uint8 image batch as a matrix product.
 
-    jnp.bincount lowers to a scatter-add — on the repo's TPU avoid-list.
-    Instead the value is split v = 16*hi + lo and the histogram becomes
-    ONE MXU matmul per image: hist2d[hi, lo] = Σ_p 1[x>>4 = hi]·1[x&15 = lo]
+    The value is split v = 16*hi + lo and the histogram becomes ONE
+    matmul per image: hist2d[hi, lo] = Σ_p 1[x>>4 = hi]·1[x&15 = lo]
     = onehot_hi(P, 16)ᵀ @ onehot_lo(P, 16). The one-hot compares are 32
-    per pixel (vs 256 for a direct compare-reduce) and the contraction
-    runs on the MXU; counts are exact in f32 for any image < 2^24 px.
+    per pixel (vs 256 for a direct compare-reduce). Exact on any device:
+    the bf16 operands are 0/1 and the f32 accumulation holds counts
+    exactly for any image < 2^24 px.
 
-    The (..., P, 16) one-hot operands are materialized by XLA, so the
+    The (..., P, 16) one-hot operands may be materialized by XLA, so the
     pixel axis is chunked with a lax.scan once batch×pixels exceeds
-    ~16.7M elements (~0.5 GB/operand in bf16): without this, the staged
-    Otsu route at production scale (batch 256 @ 1080p = 531M px) would
-    build two ~17 GB intermediates and OOM a 16 GB-HBM chip. Counts stay
-    exact: chunk partial sums are integer-valued f32 (< 2^24 per bin)
-    and zero-padding is subtracted from bin 0.
+    ~16.7M elements (~0.5 GB/operand in bf16): without this, Otsu at
+    production scale (batch 256 @ 1080p = 531M px) would build two ~17 GB
+    intermediates. Counts stay exact: chunk partial sums are
+    integer-valued f32 (< 2^24 per bin) and zero-padding is subtracted
+    from bin 0.
 
     x: (..., H, W) uint8 → (..., 256) float32 counts, bin v = pixel value.
     """

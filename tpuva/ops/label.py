@@ -89,9 +89,9 @@ def _scan_key(H: int, W: int, connectivity: int):
 
 def _shifted(x: jnp.ndarray, d: int, axis: int, fill, reverse: bool):
     """x shifted so element i reads x[i-d] (forward) or x[i+d] (reverse),
-    with constant fill at the boundary. Contiguous pad+slice only — lowers
-    to cheap TPU data movement (unlike associative_scan's odd/even
-    decimation, which strides the minor dimension)."""
+    with constant fill at the boundary. Contiguous pad+slice only (unlike
+    associative_scan's odd/even decimation, which strides the minor
+    dimension)."""
     pad = [(0, 0)] * x.ndim
     idx = [slice(None)] * x.ndim
     if not reverse:
@@ -132,15 +132,15 @@ def label_components(mask: jnp.ndarray, connectivity: int = 8, jump_rounds: int 
     shape: each component carries (its minimum scan key K) + 1, background
     is 0. Use `relabel_dense` for cv2-compatible dense ids.
 
-    Algorithm (TPU-shaped): iterate {3x3 neighbor-min sweep (diagonal
+    Algorithm: iterate {3x3 neighbor-min sweep (diagonal
     links), then segmented min-scans along rows and columns (propagating a
     label across an entire horizontal/vertical run in one O(log) sweep)}
     until fixed point. All ops are streaming (reduce_window, associative
     scan) — no per-pixel gathers in the loop. Convex blobs converge in 1-2
     iterations; iteration count scales with the number of "turns" of the
     most serpentine component, not its pixel length. jump_rounds > 0
-    additionally applies pointer-jumping rounds (gather-based, expensive on
-    TPU — only worth it for pathological maze masks).
+    additionally applies pointer-jumping rounds (gather-based — only worth
+    it for pathological maze masks).
     """
     squeeze = mask.ndim == 2
     if squeeze:
@@ -230,7 +230,7 @@ def _strip_view(x: jnp.ndarray, connectivity: int):
     """(N, H, W) -> (N, Q, 512) contiguous "strips", each covering 512
     consecutive scan-key (K) slots: a 2x256-pixel block-row segment for
     8-conn, 512 pixels of one row for 4-conn. Built with a mid-axis
-    transpose only (the minor dim is untouched — the cheap kind on TPU).
+    transpose only (the minor dim is untouched).
 
     Strip slot order is SPATIAL ([row0 cols | row1 cols] for 8-conn);
     `perm` is the static permutation mapping K order -> spatial slot.
@@ -248,92 +248,18 @@ def _strip_view(x: jnp.ndarray, connectivity: int):
             .transpose(0, 1, 3, 2, 4)
             .reshape(N, Q, 512)
         )
-        perm = _strip_view_meta(8)[3]  # spatial index producing K slot t
+        perm = _strip_perm(8)  # spatial index producing K slot t
     else:
         Qc = -(-W // 512)
         Wp = Qc * 512
         xp = jnp.pad(x, ((0, 0), (0, 0), (0, Wp - W)))
         Q = H * Qc
         strips = xp.reshape(N, Q, 512)
-        perm = _strip_view_meta(4)[3]
+        perm = _strip_perm(4)
     return strips, Qc, Q, perm
 
 
-def _strip_rows(x: jnp.ndarray, connectivity: int):
-    """(N, H, W) -> (N, R, 256|512) contiguous HALF-STRIP rows: a pure
-    reshape after edge padding — NO transpose (the gen-2 _strip_view's
-    mid-axis transpose cost ~7 ms per 128-frame 1080p batch). For 8-conn,
-    strip q's spatial halves live at rows ((q//Qc)*2 + h)*Qc + q%Qc,
-    h in {0, 1}; 4-conn strips are whole rows. Returns
-    (xr, Qc, Q, halves)."""
-    N, H, W = x.shape
-    if connectivity == 8:
-        Hb = (H + 1) // 2
-        He = 2 * Hb
-        Qc = -(-((W + 1) // 2) // 128)
-        Wp = Qc * 256
-        xp = jnp.pad(x, ((0, 0), (0, He - H), (0, Wp - W)))
-        return xp.reshape(N, Hb * 2 * Qc, 256), Qc, Hb * Qc, 2
-    Qc = -(-W // 512)
-    Wp = Qc * 512
-    xp = jnp.pad(x, ((0, 0), (0, 0), (0, Wp - W)))
-    return xp.reshape(N, H * Qc, 512), Qc, H * Qc, 1
-
-
-def _strip_row_index(q, h: int, Qc: int):
-    """Row index in the half-strip layout of strip q's half h."""
-    return ((q // Qc) * 2 + h) * Qc + (q % Qc)
-
-
-def _gather_strips(xr, q_idx, Qc: int, halves: int):
-    """xr (N, R, S), q_idx (N, K) -> (N, K, 512) strips in SPATIAL slot
-    order ([row0 cols | row1 cols] for 8-conn) via 1-2 small row gathers."""
-    if halves == 1:
-        return jnp.take_along_axis(xr, q_idx[:, :, None], axis=1)
-    parts = [
-        jnp.take_along_axis(
-            xr, _strip_row_index(q_idx, h, Qc)[:, :, None], axis=1
-        )
-        for h in (0, 1)
-    ]
-    return jnp.concatenate(parts, axis=-1)
-
-
-def _per_strip(rows_stat, Qc: int, halves: int, combine):
-    """(N, R) per-half-row statistic -> (N, Q) per-strip via `combine`
-    (tiny reshaped reduction, no transpose of the bulk data)."""
-    if halves == 1:
-        return rows_stat
-    N, R = rows_stat.shape
-    Hb = R // (2 * Qc)
-    return combine(
-        rows_stat.reshape(N, Hb, 2, Qc), axis=2
-    ).reshape(N, Hb * Qc)
-
-
-@lru_cache(maxsize=32)
-def _strip_keys(H: int, W: int, connectivity: int, Qc: int, Q: int):
-    """Static (Q, 512) int32 map: scan key K of every strip slot, in strip
-    SPATIAL order (see _strip_view). root == _strip_keys + 1 is the
-    root-flag test directly in strip space — no second full-image pass."""
-    _kmap, _inv, _sent = _scan_key(H, W, connectivity)
-    _, _, _, perm = _strip_view_meta(connectivity)
-    kofs = np.empty(512, np.int64)
-    kofs[perm] = np.arange(512)  # spatial slot -> K offset within strip
-    q = np.arange(Q, dtype=np.int64)
-    if connectivity == 8:
-        Wb = (W + 1) // 2
-        base = ((q // Qc) * Wb + (q % Qc) * 128) * 4
-    else:
-        base = (q // Qc) * W + (q % Qc) * 512
-    return (
-        (base[:, None] + kofs[None, :]).astype(np.int32),
-        base.astype(np.int32),
-        kofs.astype(np.int32),
-    )
-
-
-def _strip_view_meta(connectivity: int):
+def _strip_perm(connectivity: int) -> np.ndarray:
     """The static 512-slot K-order permutation of _strip_view."""
     if connectivity == 8:
         dr = np.repeat(np.arange(2), 256)
@@ -343,7 +269,7 @@ def _strip_view_meta(connectivity: int):
         perm[kpos] = np.arange(512)
     else:
         perm = np.arange(512, dtype=np.int32)
-    return None, None, None, perm
+    return perm
 
 
 @partial(
@@ -357,8 +283,7 @@ def _root_table(root: jnp.ndarray, connectivity: int, max_components: int):
     order; 512 pixels of one row for 4-conn), so
 
     1. per-chunk root counts come from plain contiguous reductions over the
-       padded root-flag image (no space-to-depth transpose — minor-dim
-       interleave transposes cost ~100ms/batch at 1080p on TPU);
+       padded root-flag image (no minor-dim space-to-depth transpose);
     2. the c-th root's chunk is found by a tiny per-frame searchsorted
        over the chunk-count prefix sums;
     3. only that strip is gathered (C x 512 elements — small), permuted
@@ -424,7 +349,6 @@ def connected_components_with_stats(
     jump_rounds: int = 0,
     compute_bbox: bool = True,
     compute_labels: bool = True,
-    strict: bool = True,
 ):
     """Batched cv2.connectedComponentsWithStats.
 
@@ -437,34 +361,15 @@ def connected_components_with_stats(
       area     : (N, C+1)  int32  — row 0 is background, rows 1..C blobs
       bbox     : (N, C+1, 4) int32 — (x, y, w, h), zeros for absent ids
       centroid : (N, C+1, 2) float32 — (x=col, y=row), (0,0) for absent ids
+      centroid_sum : (N, C+1, 2) int32 — exact (sx, sy) coordinate sums
     C = max_components. All shapes static.
-
-    TPU design: after min-key propagation (label_components), every
-    per-component quantity is an MXU matmul against the one-hot of the
-    pixel's root key vs the C-entry root table — no gathers, scatters,
-    sorts or full-size cumsums anywhere. Exactness: coordinate payloads are
-    split into 6-bit limbs (exact in bf16, integer-exact f32 accumulation
-    for any component with area <= 2^24/63 ≈ 266k px) and recombined in
-    int32. The background row (id 0) is derived by subtraction from static
-    image totals; its centroid may round in float32 — it is not a blob
-    statistic.
     """
     squeeze = mask.ndim == 2
     if squeeze:
         mask = mask[None]
-    if jax.default_backend() == "tpu":
-        # grid-sequential Pallas propagation: bit-identical, ~5x faster
-        from tpuva.ops.pallas.ccl import label_components_tiled
-
-        root, converged = label_components_tiled(
-            mask, connectivity=connectivity, return_converged=True
-        )
-    else:
-        # XLA path iterates to a true fixed point — always converged
-        root = label_components(
-            mask, connectivity=connectivity, jump_rounds=jump_rounds
-        )
-        converged = jnp.bool_(True)
+    root = label_components(
+        mask, connectivity=connectivity, jump_rounds=jump_rounds
+    )
     out = _stats_from_root(
         root,
         max_components=max_components,
@@ -472,43 +377,17 @@ def connected_components_with_stats(
         compute_bbox=compute_bbox,
         compute_labels=compute_labels,
     )
-    # never silently drop accuracy (CLAUDE.md): if the tiled kernel's
-    # round cap was hit, labels may still be split — surface the flag,
-    # and raise eagerly when we can (inside jit the caller must check
-    # out["ccl_converged"], as the staged pipeline does)
-    out["ccl_converged"] = converged
-    if strict and not isinstance(converged, jax.core.Tracer):
-        if not bool(converged):
-            raise RuntimeError(
-                "tiled CCL hit its propagation round cap before "
-                "converging — component stats would be split/wrong. "
-                "Re-run with the XLA path (CPU backend / "
-                "label_components) or raise the kernel's max_rounds."
-            )
     if squeeze:
-        out = {k: (v if k == "ccl_converged" else v[0])
-               for k, v in out.items()}
+        out = {k: v[0] for k, v in out.items()}
     return out
 
 
-def _assemble_stats(sums, n_roots, H: int, W: int, C: int):
-    """Shared stats epilogue: limb recombination, background row by
-    subtraction from static image totals, centroid division. sums:
-    (N, C, 7) float32 exact-integer limb sums (area, x limbs, y limbs).
-    Returns (count, area (N,C+1), centroid (N,C+1,2), csum (N,C+1,2),
-    present)."""
+def _assemble_stats(area_c, sx_c, sy_c, n_roots, H: int, W: int, C: int):
+    """Shared stats epilogue: background row by subtraction from static
+    image totals, centroid division. area_c, sx_c, sy_c: (N, C) int32
+    exact per-component sums. Returns (count, area (N,C+1), centroid
+    (N,C+1,2), csum (N,C+1,2), present)."""
     count = jnp.minimum(n_roots, C)
-    area_c = sums[..., 0].astype(jnp.int32)
-    sx_c = (
-        sums[..., 1].astype(jnp.int32)
-        + (sums[..., 2].astype(jnp.int32) << 6)
-        + (sums[..., 3].astype(jnp.int32) << 12)
-    )
-    sy_c = (
-        sums[..., 4].astype(jnp.int32)
-        + (sums[..., 5].astype(jnp.int32) << 6)
-        + (sums[..., 6].astype(jnp.int32) << 12)
-    )
     # background row by subtraction from static image totals (float32: the
     # bg coordinate sums exceed int32 at large resolutions)
     area0 = (H * W - jnp.sum(area_c, axis=1)).astype(jnp.int32)
@@ -533,8 +412,8 @@ def _assemble_stats(sums, n_roots, H: int, W: int, C: int):
     # row 0 (background) coordinate sums exceed int32 beyond ~1080p (4K:
     # ~1.6e10) and are float32-rounded above ~2^24 regardless — clamp the
     # cast so it stays defined instead of an out-of-range f32->i32
-    # conversion; the bg row is not a blob statistic (see docstring), and
-    # its float centroid above is unaffected. Component rows are exact.
+    # conversion; the bg row is not a blob statistic, and its float
+    # centroid above is unaffected. Component rows are exact.
     imax = jnp.float32(2**31 - 128)  # largest f32 below 2^31
     csum0 = jnp.clip(
         jnp.stack([sx0, sy0], axis=-1), -imax, imax
@@ -548,7 +427,6 @@ def _assemble_stats(sums, n_roots, H: int, W: int, C: int):
     jax.jit,
     static_argnames=(
         "max_components", "connectivity", "compute_bbox", "compute_labels",
-        "sparse_strips",
     ),
 )
 def _stats_from_root(
@@ -557,173 +435,60 @@ def _stats_from_root(
     connectivity: int = 8,
     compute_bbox: bool = True,
     compute_labels: bool = True,
-    sparse_strips: int = 0,
 ):
     """Stats assembly given precomputed root-key labels (see
     connected_components_with_stats for the output contract).
 
-    sparse_strips > 0 (tracking-pipeline fast path; requires
-    compute_bbox=compute_labels=False): the one-hot payload contraction
-    runs only over the up-to-`sparse_strips` 512-pixel strips that contain
-    foreground, gathered into a compact array — typically 8-16x less work
-    than the dense contraction on sparse masks. If more strips are occupied
-    than the capacity, the extras are dropped and reported in the returned
-    "overflow" field (per frame; 0 = exact).
+    Every pixel finds its root's slot in the ascending C-entry root table
+    (a compare-count over C that XLA fuses into one reduction, so no
+    (N, H*W, C) tensor is built), and the per-component sums are exact
+    int32 segment sums (scatter-adds) keyed by frame * C + slot. Pixels
+    whose root is not in the table — background, and components past the
+    capacity — get an out-of-range key and are dropped by the scatter.
+    Component coordinate sums stay exact while they fit int32 (any
+    component of a 1080p frame does).
     """
     N, H, W = root.shape
     C = max_components
-    assert W < 2**18 and H < 2**18
-    overflow = jnp.zeros((N,), jnp.int32)
+    table, n_roots = _root_table(root, connectivity, C)
+    flat = root.reshape(N, H * W)
+    # table is ascending with a sentinel fill above every root value, so
+    # a root's slot is the number of entries below it
+    slot = jnp.sum(
+        table[:, None, :] < flat[:, :, None], axis=2, dtype=jnp.int32
+    )
+    hit = jnp.take_along_axis(table, jnp.minimum(slot, C - 1), axis=1) == flat
+    frame = jnp.arange(N, dtype=jnp.int32)[:, None]
+    seg = jnp.where(hit, frame * C + slot, N * C).reshape(-1)
+    lin = jnp.arange(H * W, dtype=jnp.int32)
+    x = jnp.broadcast_to(lin % W, (N, H * W)).reshape(-1)
+    y = jnp.broadcast_to(lin // W, (N, H * W)).reshape(-1)
 
-    if sparse_strips and not compute_bbox and not compute_labels:
-        # ONE transpose-free half-strip-row view of the root map; the only
-        # full-image work is the occupancy reduction (bool any) — the root
-        # table is derived from the GATHERED occupied strips (every root
-        # is a foreground pixel, so no root lives outside them; drops are
-        # reported via `overflow`)
-        xr, Qc, Q, halves = _strip_rows(root, connectivity)
-        _keys, base, kofs = _strip_keys(H, W, connectivity, Qc, Q)
-        _kmap2, _inv2, sent = _scan_key(H, W, connectivity)
-        K = min(sparse_strips, Q)
-        occ_strip = _per_strip(
-            jnp.any(xr > 0, axis=2), Qc, halves, jnp.any
-        )  # (N, Q)
-        occ_cum = jnp.cumsum(occ_strip.astype(jnp.int32), axis=1)
-        total_occ = occ_cum[:, -1]
-        overflow = jnp.maximum(total_occ - K, 0)
-        # k-th occupied strip = first q with cum > k, via a compare-reduce
-        # (lax.top_k sorts the whole (N, Q) score array — several ms at
-        # batch 128; this is one fused (N, Q, K) comparison sum)
-        ks = jnp.arange(K, dtype=jnp.int32)
-        safe = jnp.minimum(
-            jnp.sum(
-                (occ_cum[:, :, None] <= ks[None, None, :]).astype(jnp.int32),
-                axis=1,
-            ),
-            Q - 1,
-        )  # (N, K) ascending occupied strip ids
-        sel_valid = ks[None, :] < total_occ[:, None]
-        got = _gather_strips(xr, safe, Qc, halves)  # (N, K, 512)
-        got = jnp.where(sel_valid[:, :, None], got, 0)
+    def seg_sum(v):
+        z = jnp.zeros((N * C,), jnp.int32)
+        return z.at[seg].add(v, mode="drop").reshape(N, C)
 
-        # ---- root table from the gathered strips (all tiny tensors):
-        # strips are in ascending-q order and kofs orders slots within a
-        # strip, so cumulative root counts give cv2's ascending-K id order
-        kb_sel = jnp.asarray(base)[safe]  # (N, K) strip base keys
-        flags = got == kb_sel[:, :, None] + jnp.asarray(kofs)[None, None] + 1
-        cnts = jnp.sum(flags, axis=2, dtype=jnp.int32)  # (N, K)
-        cum = jnp.cumsum(cnts, axis=1)
-        offs = cum - cnts
-        n_roots = cum[:, -1]  # roots in selected strips (drops => overflow)
-        cs = jnp.arange(C, dtype=jnp.int32)
-        chunk_of_c = jnp.minimum(
-            jnp.sum(
-                (cum[:, None, :] <= cs[None, :, None]).astype(jnp.int32),
-                axis=2,
-            ),
-            K - 1,
-        )  # (N, C) index into the K selected strips
-        r_in_chunk = cs[None, :] - jnp.take_along_axis(
-            offs, chunk_of_c, axis=1
-        )
-        _m1, _m2, _m3, perm = _strip_view_meta(connectivity)
-        sel_flags = jnp.take_along_axis(
-            flags, chunk_of_c[:, :, None], axis=1
-        )[:, :, jnp.asarray(perm)]  # (N, C, 512) in K-offset order
-        cumk = jnp.cumsum(sel_flags.astype(jnp.int32), axis=2)
-        pos = jnp.argmax(
-            cumk > r_in_chunk[:, :, None], axis=2
-        ).astype(jnp.int32)
-        kval = jnp.take_along_axis(kb_sel, chunk_of_c, axis=1) + pos
-        tvalid = cs[None, :] < n_roots[:, None]
-        table = jnp.where(tvalid, kval + 1, jnp.int32(sent + 2))
-        # per-slot global coords reconstructed from the strip id
-        slot = jnp.arange(512, dtype=jnp.int32)[None, None, :]
-        if connectivity == 8:
-            qr = (safe // Qc)[:, :, None]
-            qc = (safe % Qc)[:, :, None]
-            y = 2 * qr + (slot >= 256).astype(jnp.int32)
-            x = qc * 256 + slot % 256
-        else:
-            y = jnp.broadcast_to((safe // Qc)[:, :, None], got.shape)
-            x = (safe % Qc)[:, :, None] * 512 + slot
-        eq = (
-            got.reshape(N, K * 512)[:, :, None]
-            == table[:, None, :]
-        ).astype(jnp.bfloat16)  # (N, K*512, C)
-        payload = jnp.stack(
-            [
-                jnp.ones_like(x),
-                x & 63, (x >> 6) & 63, x >> 12,
-                y & 63, (y >> 6) & 63, y >> 12,
-            ],
-            axis=-1,
-        ).reshape(N, K * 512, 7).astype(jnp.bfloat16)
-        sums = jnp.einsum(
-            "npc,npk->nck", eq, payload,
-            preferred_element_type=jnp.float32,
-        )  # (N, C, 7)
-    else:
-        table, n_roots = _root_table(root, connectivity, C)
-        flat = root.reshape(N, H * W)
-        eq = (flat[:, :, None] == table[:, None, :]).astype(jnp.bfloat16)
-        lin = jax.lax.broadcasted_iota(jnp.int32, (H * W, 1), 0)[:, 0]
-        x = lin % W
-        y = lin // W
-        payload = jnp.stack(
-            [
-                jnp.ones_like(x),
-                x & 63, (x >> 6) & 63, x >> 12,
-                y & 63, (y >> 6) & 63, y >> 12,
-            ],
-            axis=-1,
-        ).astype(jnp.bfloat16)  # (HW, 7)
-        sums = jnp.einsum(
-            "npc,pk->nck", eq, payload, preferred_element_type=jnp.float32
-        )  # (N, C, 7)
+    area_c = seg_sum(jnp.ones_like(x))
+    sx_c = seg_sum(x)
+    sy_c = seg_sum(y)
     count, area, centroid, csum, present = _assemble_stats(
-        sums, n_roots, H, W, C
+        area_c, sx_c, sy_c, n_roots, H, W, C
     )
 
     if compute_labels:
-        # ids contracted as 6-bit limbs (bf16 is integer-exact only to 256;
-        # each pixel has at most one matching column so sums are exact)
-        ids = np.arange(1, C + 1, dtype=np.int64)
-        id_limbs = max(1, -(-int(C + 1).bit_length() // 6))
-        limbs = np.stack(
-            [(ids >> (6 * l)) & 63 for l in range(id_limbs)], axis=-1
-        ).astype(np.float32)
-        dl = jnp.einsum(
-            "npc,cl->npl",
-            eq,
-            jnp.asarray(limbs, jnp.bfloat16),
-            preferred_element_type=jnp.float32,
-        )
-        dense = sum(
-            dl[..., l].astype(jnp.int32) << (6 * l) for l in range(id_limbs)
-        ).reshape(N, H, W)
+        dense = jnp.where(hit, slot + 1, 0).reshape(N, H, W)
     else:
         dense = jnp.zeros((N, H, W), jnp.int32)
 
     if compute_bbox:
-        # bbox from row/column presence, again via dots: per-row and
-        # per-column member counts, then tiny index min/max reductions.
-        eq4 = eq.reshape(N, H, W, C)
-        ones_w = jnp.ones((W,), jnp.bfloat16)
-        ones_h = jnp.ones((H,), jnp.bfloat16)
-        row_cnt = jnp.einsum(
-            "nhwc,w->nhc", eq4, ones_w, preferred_element_type=jnp.float32
-        )  # (N, H, C)
-        col_cnt = jnp.einsum(
-            "nhwc,h->nwc", eq4, ones_h, preferred_element_type=jnp.float32
-        )  # (N, W, C)
-        BIGI = jnp.int32(2**30)
-        hs = jnp.arange(H, dtype=jnp.int32)[None, :, None]
-        ws = jnp.arange(W, dtype=jnp.int32)[None, :, None]
-        ymin = jnp.min(jnp.where(row_cnt > 0, hs, BIGI), axis=1)
-        ymax = jnp.max(jnp.where(row_cnt > 0, hs, -1), axis=1)
-        xmin = jnp.min(jnp.where(col_cnt > 0, ws, BIGI), axis=1)
-        xmax = jnp.max(jnp.where(col_cnt > 0, ws, -1), axis=1)
+        big = jnp.int32(2**30)
+
+        def seg_min(v):
+            z = jnp.full((N * C,), big, jnp.int32)
+            return z.at[seg].min(v, mode="drop").reshape(N, C)
+
+        xmin, ymin = seg_min(x), seg_min(y)
+        xmax, ymax = -seg_min(-x), -seg_min(-y)
         bbox_c = jnp.stack(
             [xmin, ymin, xmax - xmin + 1, ymax - ymin + 1], axis=-1
         )
@@ -737,902 +502,15 @@ def _stats_from_root(
         bbox = jnp.where(present[:, :, None], bbox, 0).astype(jnp.int32)
     else:
         bbox = jnp.zeros((N, C + 1, 4), jnp.int32)
-    out = {
+    return {
         "labels": dense,
         "count": count,
         "area": area,
         "bbox": bbox,
         "centroid": centroid,
         "centroid_sum": csum,
-        "overflow": overflow,
-    }
-    return out
-
-
-def _limb_contract(got, table, b, c, tail_split: int = 0,
-                   table_invalid=None):
-    """Payload contraction via the additive limb split — THE single copy
-    of the exactness-critical factorization used by both the raw and the
-    compact stats tails.
-
-    tail_split > 0 enables the tiered contraction (head strips always,
-    tail strips under a runtime lax.cond — see the inline note); eq4 is
-    then not materialized and returns None (callers needing it — bbox —
-    must pass tail_split=0).
-
-    For slot v of strip (b, c): x = 256c + xl (xl = v % 256),
-    y = 2b + yl (yl = v >= 256). Because strip bases are 256- (x) and
-    2- (y) aligned, every 6-bit limb decomposes with NO carry:
-    limb(x) = limb(256c) + limb(xl) since 256c's low 6 bits are 0 and
-    (4c & 63) + (xl >> 6) <= 60 + 3 = 63 (likewise (2b & 63) + yl <= 63).
-    So the (N, S*512, 7) payload factors into a STATIC per-slot part
-    L[v, :] plus a tiny per-strip base B[n, s, :], and the long einsum
-    becomes two compare+sum reductions over `got` (XLA fuses the compare
-    into each — no (N, P, C) or (N, P, 7) tensor ever hits HBM) and two
-    small exact-in-f32 contractions:
-        sums = einsum(E2, L) + einsum(cnt, B)
-        E2[n, v, c]  = #strips whose slot v belongs to root c
-        cnt[n, s, c] = #slots of strip s belonging to root c
-    All quantities are integer counts/coordinates well below 2^24, so
-    f32 arithmetic is exact and the result is bit-identical to a direct
-    one-hot matmul.
-
-    got: (N, S, 512) root key per slot (or (N, 2S, 256) row-granular,
-    with rows=True: the y parity then folds into the per-row base —
-    (2b & 63) + par <= 63, still carry-free); table: (N, C); b, c:
-    (N, S) strip block-row / block-col coords ((N, 2S) per-row, with
-    b pre-scaled so y = b_row directly). Returns (sums (N, C, 7),
-    eq4 — reused by _bbox_from_strips; None in tiered mode).
-    """
-    V = got.shape[2]
-    vs = np.arange(V, dtype=np.int64)
-    if V == 512:
-        xl, yl = vs % 256, (vs >= 256).astype(np.int64)
-        xb, yb = 256 * c, 2 * b
-    else:  # row-granular (V=256): y comes entirely from the row base
-        assert V == 256
-        xl, yl = vs, np.zeros(V, np.int64)
-        xb, yb = 256 * c, b  # caller passes b = 2*block_row + parity
-    L = jnp.asarray(
-        np.stack(
-            [np.ones(V), xl & 63, xl >> 6, np.zeros(V),
-             yl, np.zeros(V), np.zeros(V)],
-            axis=-1,
-        ).astype(np.float32)
-    )  # (V, 7)
-    B = jnp.stack(
-        [
-            jnp.zeros_like(xb), jnp.zeros_like(xb),
-            (xb >> 6) & 63, xb >> 12,
-            yb & 63, (yb >> 6) & 63, yb >> 12,
-        ],
-        axis=-1,
-    ).astype(jnp.float32)  # (N, S, 7)
-
-    def contract(lo, hi, cl=0, ch=None):
-        ch = table.shape[1] if ch is None else ch
-        eq = (
-            got[:, lo:hi, :, None] == table[:, None, None, cl:ch]
-        )  # (N, hi-lo, 512, ch-cl)
-        E2 = jnp.sum(eq, axis=1, dtype=jnp.float32)
-        cnt = jnp.sum(eq, axis=2, dtype=jnp.float32)
-        return jnp.einsum(
-            "nvc,vk->nck", E2, L, preferred_element_type=jnp.float32
-        ) + jnp.einsum(
-            "nsc,nsk->nck", cnt, B[:, lo:hi],
-            preferred_element_type=jnp.float32,
-        ), eq
-
-    if not tail_split:
-        sums, eq4 = contract(0, got.shape[1])
-        return sums, eq4
-
-    # Tiered contraction (round 4, PERF_ROOFLINE: this stage ran at 1.7%
-    # of the HBM roofline because the compare volume is linear in TWO
-    # STATIC capacities — slot strips and max_components — while typical
-    # scenes rank far fewer blocks and roots). Both axes tier the same
-    # way: the head chunk always runs, every further chunk runs under a
-    # lax.cond gated on whether ANY frame actually reaches it. Valid
-    # strips are a PREFIX of the strip order (slot ranks are exclusive
-    # cumsums) and valid root-table columns are a PREFIX too (ascending
-    # rank fill), so "chunk used" is one compare of its first element —
-    # and skipped chunks hold only invalid fills (-1 strips / sent+2
-    # table entries) whose every compare is false: contribution
-    # identically zero, skipping is bit-identical, and the stage's cost
-    # adapts to the batch's worst frame instead of the static capacity.
-    S = got.shape[1]
-    C = table.shape[1]
-    CC = 8  # component-axis chunk (components beyond the worst frame's
-    #         n_roots cost nothing)
-    assert table_invalid is not None, (
-        "tiered contraction needs the table's invalid-fill sentinel"
-    )
-
-    def c_used(cl):
-        # column cl holds a valid key in SOME frame iff any frame has
-        # n_roots > cl (valid columns are a prefix; invalid columns hold
-        # exactly the sentinel fill)
-        return jnp.any(table[:, cl] != jnp.int32(table_invalid))
-
-    parts = []
-    for cl in range(0, C, CC):
-        ch = min(cl + CC, C)
-
-        def c_block(cl=cl, ch=ch):
-            lo = min(tail_split, S)
-            acc, _eq = contract(0, lo, cl, ch)
-            while lo < S:
-                hi = min(lo + tail_split, S)
-                chunk_used = jnp.any(got[:, lo, 0] >= 0)
-                acc = acc + lax.cond(
-                    chunk_used,
-                    (lambda lo=lo, hi=hi: contract(lo, hi, cl, ch)[0]),
-                    lambda: jnp.zeros_like(acc),
-                )
-                lo = hi
-            return acc
-
-        if cl == 0:
-            parts.append(c_block())
-        else:
-            zero = jnp.zeros((got.shape[0], ch - cl, 7), jnp.float32)
-            parts.append(lax.cond(c_used(cl), c_block, lambda z=zero: z))
-    return jnp.concatenate(parts, axis=1), None
-
-
-def _bbox_from_strips(eq4, b, c, present, H: int, W: int):
-    """(x, y, w, h) per component from strip-space membership — the
-    fast-path twin of _stats_from_root's dense row/col contractions
-    (which are golden-tested vs cv2).
-
-    eq4: (N, S, 512, C) bool membership of strip slots in components;
-    b, c: (N, S) int32 block row / 256-col chunk of each strip; slot v of
-    a strip is pixel (y, x) = (2b + (v >= 256), 256c + v % 256).
-    present: (N, C+1) validity incl. the background row. Reductions ride
-    the same eq4 tensor the payload contraction already materializes, so
-    XLA fuses them into one pass over it."""
-    N, S, _V, C = eq4.shape
-    BIG = jnp.int32(2**30)
-    xl = (jnp.arange(512, dtype=jnp.int32) % 256)[None, None, :, None]
-    xmin_s = jnp.min(jnp.where(eq4, xl, BIG), axis=2)  # (N, S, C)
-    xmax_s = jnp.max(jnp.where(eq4, xl, -1), axis=2)
-    has0 = jnp.any(eq4[:, :, :256, :], axis=2)  # row 2b occupied
-    has1 = jnp.any(eq4[:, :, 256:, :], axis=2)  # row 2b+1 occupied
-    bx = (256 * c)[:, :, None]
-    by = (2 * b)[:, :, None]
-    xmin = jnp.min(jnp.where(xmin_s < BIG, bx + xmin_s, BIG), axis=1)
-    xmax = jnp.max(jnp.where(xmax_s >= 0, bx + xmax_s, -1), axis=1)
-    ymin = jnp.min(
-        jnp.minimum(
-            jnp.where(has0, by, BIG), jnp.where(has1, by + 1, BIG)
-        ),
-        axis=1,
-    )
-    ymax = jnp.max(
-        jnp.maximum(
-            jnp.where(has0, by, -1), jnp.where(has1, by + 1, -1)
-        ),
-        axis=1,
-    )
-    bbox_c = jnp.stack(
-        [xmin, ymin, xmax - xmin + 1, ymax - ymin + 1], axis=-1
-    )
-    # background row: full-image box (same convention as _stats_from_root)
-    bbox0 = jnp.broadcast_to(jnp.array([0, 0, W, H], jnp.int32), (N, 4))
-    bbox = jnp.concatenate([bbox0[:, None], bbox_c], axis=1)
-    return jnp.where(present[:, :, None], bbox, 0).astype(jnp.int32)
-
-
-@partial(
-    jax.jit,
-    static_argnames=("H", "W", "max_components", "sparse_strips",
-                     "compute_bbox"),
-)
-def _stats_from_raw(
-    labraw: jnp.ndarray,
-    strip_occ: jnp.ndarray,
-    H: int,
-    W: int,
-    max_components: int = 64,
-    sparse_strips: int = 256,
-    compute_bbox: bool = False,
-):
-    """Sparse-strip stats directly from the RAW padded CCL buffer
-    (tpuva.ops.pallas.ccl.label_components_tiled_raw) — the gen-4 tail.
-
-    The label buffer is touched ONLY by tiny row gathers of occupied
-    strips (regions the CCL kernel never wrote are never read); occupancy
-    comes from the caller's mask-derived `strip_occ`, so there is no
-    full-image pass anywhere in stats assembly. Semantics (root table in
-    cv2 ascending-key order, 6-bit-limb MXU payload contraction, overflow
-    reporting) are identical to _stats_from_root's sparse path —
-    bit-equality is pinned by tests/test_ccl_raw.py.
-
-    8-connectivity only. labraw: (Nfp, Hp+16, Wp+512) int32 raw scan keys
-    (image pixel (y, x) at buffer (y+8, x+256)); strip_occ:
-    (N, Hp//2, Wp//256) any-mask flag per (2x256) key strip. Returns the
-    _stats_from_root dict with labels/bbox zeroed (the tracking pipeline
-    does not consume them; XLA DCEs the zero tensors)."""
-    N, Hbp, Qcp = strip_occ.shape
-    Nfp, Hbuf, Wbuf = labraw.shape
-    CPR = Wbuf // 256  # 256-col chunks per buffer row
-    C = max_components
-    _kmap2, _inv2, sent = _scan_key(H, W, 8)
-    Q = Hbp * Qcp
-    K = min(sparse_strips, Q)
-    _keys, base, kofs = _strip_keys(H, W, 8, Qcp, Q)
-
-    occ_strip = strip_occ.reshape(N, Q) != 0
-    occ_cum = jnp.cumsum(occ_strip.astype(jnp.int32), axis=1)
-    total_occ = occ_cum[:, -1]
-    overflow = jnp.maximum(total_occ - K, 0)
-    ks = jnp.arange(K, dtype=jnp.int32)
-    safe = jnp.minimum(
-        jnp.sum(
-            (occ_cum[:, :, None] <= ks[None, None, :]).astype(jnp.int32),
-            axis=1,
-        ),
-        Q - 1,
-    )  # (N, K) ascending occupied strip ids
-    sel_valid = ks[None, :] < total_occ[:, None]
-
-    # strip q = (block-row b, chunk c) lives at buffer rows 8 + 2b + h,
-    # buffer chunk c + 1 (the 256-col left margin is exactly one chunk)
-    b = safe // Qcp
-    c = safe % Qcp
-    nrow = jnp.arange(N, dtype=jnp.int32)[:, None]
-    xrf = labraw.reshape(Nfp * Hbuf * CPR, 256)
-    # one fused row gather for both halves of each strip (row 2b at
-    # slots [0:256], row 2b+1 at [256:512] after the reshape — identical
-    # layout to the old per-half takes + concat, minus the concat copy)
-    rowbase = (nrow * Hbuf + (8 + 2 * b)) * CPR + (c + 1)  # (N, K)
-    idx2 = rowbase[:, :, None] + jnp.array([0, CPR], jnp.int32)[None, None]
-    got = jnp.take(xrf, idx2, axis=0).reshape(N, K, 512)
-    got = jnp.where(sel_valid[:, :, None], got, jnp.int32(-1))
-
-    # root table: a pixel is a root iff its label equals its own scan key.
-    # The `got < sent` guard matters for strips spanning past the image
-    # edge: an out-of-image slot holds SENT, and its (meaningless) static
-    # expected key base+kofs can alias SENT exactly — without the guard
-    # those slots flag as phantom roots (caught by
-    # tests/test_ccl_raw.py::test_random_masks_match_dense_path at W=100).
-    kb_sel = jnp.asarray(base)[safe]  # (N, K)
-    flags = (
-        got == kb_sel[:, :, None] + jnp.asarray(kofs)[None, None]
-    ) & (got < jnp.int32(sent))
-    cnts = jnp.sum(flags, axis=2, dtype=jnp.int32)
-    cum = jnp.cumsum(cnts, axis=1)
-    offs = cum - cnts
-    n_roots = cum[:, -1]
-    cs = jnp.arange(C, dtype=jnp.int32)
-    chunk_of_c = jnp.minimum(
-        jnp.sum(
-            (cum[:, None, :] <= cs[None, :, None]).astype(jnp.int32),
-            axis=2,
-        ),
-        K - 1,
-    )
-    r_in_chunk = cs[None, :] - jnp.take_along_axis(offs, chunk_of_c, axis=1)
-    _m1, _m2, _m3, perm = _strip_view_meta(8)
-    sel_flags = jnp.take_along_axis(
-        flags, chunk_of_c[:, :, None], axis=1
-    )[:, :, jnp.asarray(perm)]  # (N, C, 512) in K-offset order
-    cumk = jnp.cumsum(sel_flags.astype(jnp.int32), axis=2)
-    pos = jnp.argmax(cumk > r_in_chunk[:, :, None], axis=2).astype(jnp.int32)
-    kval = jnp.take_along_axis(kb_sel, chunk_of_c, axis=1) + pos
-    tvalid = cs[None, :] < n_roots[:, None]
-    table = jnp.where(tvalid, kval, jnp.int32(sent + 2))
-
-    # payload contraction: carry-free limb factorization, single proof
-    # and implementation in _limb_contract
-    # tiered when bbox doesn't need the membership tensor — the tail
-    # tier only runs for frames that actually ranked strips past the
-    # head (bit-identical: unskipped tails contribute exactly zero)
-    sums, eq4 = _limb_contract(
-        got, table, b, c, tail_split=0 if compute_bbox else 64,
-        table_invalid=sent + 2,
-    )
-    count, area, centroid, csum, present = _assemble_stats(
-        sums, n_roots, H, W, C
-    )
-    bbox = (
-        _bbox_from_strips(eq4, b, c, present, H, W)
-        if compute_bbox
-        else jnp.zeros((N, C + 1, 4), jnp.int32)
-    )
-    return {
-        "labels": jnp.zeros((N, H, W), jnp.int32),
-        "count": count,
-        "area": area,
-        "bbox": bbox,
-        "centroid": centroid,
-        "centroid_sum": csum,
-        "overflow": overflow,
-        "root_table": table,
     }
 
-
-@partial(jax.jit, static_argnames=("H", "W"))
-def labels_from_raw(
-    labraw: jnp.ndarray,
-    strip_occ: jnp.ndarray,
-    table: jnp.ndarray,
-    H: int,
-    W: int,
-):
-    """Dense cv2-id label map from the RAW CCL buffer + root table —
-    the opt-in fast-path twin of relabel_dense (which is golden-tested
-    vs cv2.connectedComponentsWithStats label ids).
-
-    labraw holds the converged scan-key labels for every WRITTEN tile
-    (key K for mask pixels, SENT for background) and GARBAGE elsewhere;
-    garbage can alias a real root key, so every read is gated by the
-    mask-derived strip occupancy — a pixel in an unoccupied (2x256)
-    strip is background by construction, whatever the buffer holds
-    (same invariant as the stats tails; see label_components_tiled_raw).
-
-    The root table is in ascending-key order == cv2 raster
-    first-appearance order (the codebase's pinned id contract), so
-    component j (0-based table column) gets dense id j+1. Cost: one
-    C-iteration compare-accumulate over the cropped image — a full-image
-    op, so this stays OFF the tracking fast path and is computed only
-    when a consumer asks for label maps (return_labels=True).
-
-    labraw: (Nfp, Hp+16, Wp+512) int32 (pixel (y, x) at (y+8, x+256));
-    strip_occ: (N, Hp//2, Wp//256) any-mask flag per (2x256) strip;
-    table: (N, C) int32 ascending root keys (invalid rows hold a
-    sentinel > any real key, which can never match a written value).
-    Returns (N, H, W) int32 dense labels, 0 = background.
-    """
-    N, Hbp, Qcp = strip_occ.shape
-    C = table.shape[1]
-    lab = labraw[:N, 8:8 + H, 256:256 + W]
-    # strip occupancy -> per-pixel gate (broadcast 2x rows, 256x cols)
-    occ_px = jnp.broadcast_to(
-        (strip_occ != 0)[:, :, None, :, None],
-        (N, Hbp, 2, Qcp, 256),
-    ).reshape(N, Hbp * 2, Qcp * 256)[:, :H, :W]
-    lab = jnp.where(occ_px, lab, jnp.int32(-1))  # -1 matches no table key
-
-    def body(j, acc):
-        tj = lax.dynamic_slice_in_dim(table, j, 1, axis=1)  # (N, 1)
-        return acc + jnp.where(
-            lab == tj[:, :, None], j + 1, 0
-        ).astype(jnp.int32)
-
-    return lax.fori_loop(0, C, body, jnp.zeros((N, H, W), jnp.int32))
-
-
-def _fragment_closure(rows3, slot_valid, tile_id, cum_t, occ_t,
-                      gh: int, gw: int, table, n_roots, sent: int):
-    """Cross-tile root-key closure for single-pass CCL (gen 8).
-
-    After label_components_tiled_raw(single_pass=True), every tile is at
-    a LOCAL fixed point, so adjacent masked pixels inside a tile hold
-    EQUAL labels and every in-tile fragment is uniformly labeled with
-    its fragment-min key (which is a real pixel of the fragment, hence
-    a root-flagged entry of `table`). A component straddling tiles may
-    keep several distinct fragment keys; the exact equivalences are
-    witnessed ONLY at tile boundaries, by 8-adjacent masked pixel pairs
-    in the boundary rows/cols of the compact buffer. This routine
-    extracts those pairs and computes, per root, the minimum key of its
-    equivalence class — the key the converged multi-pass kernel would
-    have propagated (min algebra: identical fixed point).
-
-    Completeness: every unordered cross-boundary adjacency is collected
-    exactly once from its top/left side —
-      * V: slot bottom row vs below-slot top row, dx in {-1, 0, +1}
-        (three SEPARATE streams: a per-pixel min over dx would drop the
-        second edge when one pixel diagonally touches two distinct
-        fragments below);
-      * H: slot right col vs right-slot left col, dy in {-1, 0, +1};
-      * the four boundary-crossing diagonals reduce to two corner pair
-        classes, bottom-right and bottom-left (the top-right/top-left
-        crossings are some other slot's BR/BL).
-    Self-pairs (a == b) are dropped: in-tile adjacency always yields
-    equal keys at a fixed point, so intra-tile sub-block boundaries
-    contribute nothing.
-
-    There is NO per-row pair capacity: the full boundary streams feed a
-    chunked one-hot MXU contraction, so every witnessed pair sets its
-    adjacency bit (duplicates just re-set it). The only strict-overflow
-    conditions left are root-table truncation (n_roots > C) and pairs
-    whose key is missing from that truncated table — both counted in
-    the returned overflow, both impossible when the table held every
-    root. (Round 4 shipped a run-head compaction with a 16-distinct-
-    pairs-per-row cap; the round-5 on-chip decomposition made it moot —
-    see below.)
-
-    TPU shape, measured on v5e (bench/recon_probe.py, recon_probe2.py
-    @1080p batch 256): the first cut used lax.sort (62 ms); the second
-    used take_along_axis slot gathers + a 16-step distinct-pair
-    compaction loop — 60 ms, of which the GATHERS were 51 ms (TPU
-    gathers run far off memory speed-of-light; the loop itself was only
-    8 ms). This version:
-      * neighbor-slot rows are selected by tiny one-hot einsums
-        (slot-index compare -> (N, T, T) selection matrix -> MXU row
-        pick). Exactness needs care: a default-precision f32 matmul
-        truncates operands to bf16 on TPU (measured on-chip: scan keys
-        corrupted; CPU CI is exact and can never catch it), so payloads
-        ride as bf16-exact 6-bit limbs recombined in int32 — the
-        _limb_contract discipline. sent + 2 < 2^24 is asserted so the
-        int32 recombination covers every key. No gathers anywhere.
-      * pair keys map to root-table indices by broadcast compare inside
-        a lax.scan over fixed-size chunks of the flat pair stream; one
-        bf16 one-hot MXU contraction per chunk accumulates the
-        (N, C, C) adjacency counts (exact in f32: counts <= P << 2^24).
-        Chunking bounds the materialized one-hots (CLAUDE.md: one-hot
-        einsum operands are materialized) at ~CH x C per frame.
-      * closure = transitive closure of that tiny matrix by
-        ceil(log2(C)) boolean matmul squarings (paths up to 2^k covered
-        after k squarings; with the diagonal seeded, >= C suffices), so
-        the result is exact by construction — no convergence check.
-
-    rows3: (N, T, CR, TW) compact slot rows, invalid slots masked to -1.
-    Returns (fk (N, C) final min key per root, overflow (N,) int32).
-    """
-    N, T, CR, TW = rows3.shape
-    C = table.shape[1]
-    G = gh * gw
-    INF = jnp.int32(2**30)
-    assert sent + 2 < 2**24, "scan keys must stay f32-exact for one-hot selection"
-
-    def valid_key(v):
-        return (v >= 0) & (v < jnp.int32(sent))
-
-    gi = tile_id // gw
-    gj = tile_id % gw
-    iota_g = jnp.arange(G, dtype=jnp.int32)
-    iota_t = jnp.arange(T, dtype=jnp.int32)
-
-    # One-hot MXU selections must NOT ride values as plain f32: a
-    # default-precision f32 matmul truncates its operands to bf16 on TPU
-    # (measured on-chip: 1080p scan keys corrupted, 0.5% of rows wrong —
-    # CPU CI is exact and cannot catch this class). Payloads therefore
-    # ride as bf16-exact 6-bit limbs and recombine in int32 — the same
-    # discipline as _limb_contract.
-    def limb_pick(vals, onehot, spec, nl):
-        # einsum(spec, onehot, limb) per 6-bit limb; onehot is 0/1
-        # (bf16-exact), limbs are 0..63 (bf16-exact), accumulation f32
-        # (sums of at most one nonzero term: exact)
-        oh = onehot.astype(jnp.bfloat16)
-        acc = None
-        for l in range(nl):
-            limb = ((vals >> (6 * l)) & 63).astype(jnp.bfloat16)
-            g = jnp.einsum(
-                spec, oh, limb, preferred_element_type=jnp.float32
-            ).astype(jnp.int32) << (6 * l)
-            acc = g if acc is None else acc + g
-        return acc
-
-    # enough limbs for cum_t (<= G) and for shifted keys (< sent + 3)
-    NL_G = max(1, -(-int(G).bit_length() // 6))
-    NL_K = max(1, -(-int(sent + 3).bit_length() // 6))
-
-    def nb_slot(di, dj):
-        ii, jj = gi + di, gj + dj
-        ok = (ii >= 0) & (ii < gh) & (jj >= 0) & (jj < gw) & slot_valid
-        ng = jnp.clip(ii * gw + jj, 0, G - 1)
-        og = ng[:, :, None] == iota_g[None, None, :]  # (N, T, G)
-        occ = limb_pick(
-            occ_t.astype(jnp.int32), og, "ntg,ng->nt", 1
-        ) > 0
-        ns = limb_pick(cum_t, og, "ntg,ng->nt", NL_G) - 1
-        ok = ok & occ & (ns < T)
-        return jnp.where(ok, ns, 0), ok
-
-    def slot_sel(ns, ok):
-        # (N, T, T) 0/1 selection: row t picks source slot ns[t]
-        return (ns[:, :, None] == iota_t[None, None, :]) & ok[:, :, None]
-
-    def pick_rows(x, sel, ok):
-        # keys shifted +1 so the masked -1 entries decompose cleanly
-        got = limb_pick(x + 1, sel, "nts,nsw->ntw", NL_K) - 1
-        return jnp.where(ok[:, :, None], got, INF)
-
-    # --- V pairs: bottom row vs below top row, 3 dx streams ---
-    bot = rows3[:, :, CR - 1, :]
-    top = rows3[:, :, 0, :]
-    nsb, okb = nb_slot(1, 0)
-    selb = slot_sel(nsb, okb)
-    mtop = pick_rows(top, selb, okb)
-    lane = jnp.arange(TW, dtype=jnp.int32)
-    streams = []
-    for dx in (-1, 0, 1):
-        m = jnp.roll(mtop, -dx, axis=2)
-        edge_ok = (lane + dx >= 0) & (lane + dx < TW)
-        streams.append(jnp.where(edge_ok[None, None, :], m, INF))
-    mv = jnp.concatenate(streams, axis=2)  # (N, T, 3*TW)
-    av = jnp.tile(bot, (1, 1, 3))
-    okv = valid_key(av) & valid_key(mv) & (av != mv)
-    pa_v = jnp.where(okv, av, INF).reshape(N, -1)
-    pb_v = jnp.where(okv, mv, INF).reshape(N, -1)
-
-    # --- H pairs: right col vs right-slot left col, 3 dy streams ---
-    rcol = rows3[:, :, :, TW - 1]
-    lcol = rows3[:, :, :, 0]
-    nsr, okr = nb_slot(0, 1)
-    selr = slot_sel(nsr, okr)
-    mlc = pick_rows(lcol, selr, okr)
-    rr = jnp.arange(CR, dtype=jnp.int32)
-    hstreams = []
-    for dy in (-1, 0, 1):
-        m = jnp.roll(mlc, -dy, axis=2)
-        edge_ok = (rr + dy >= 0) & (rr + dy < CR)
-        hstreams.append(jnp.where(edge_ok[None, None, :], m, INF))
-    mh = jnp.concatenate(hstreams, axis=2)  # (N, T, 3*CR)
-    ah = jnp.tile(rcol, (1, 1, 3))
-    okh = valid_key(ah) & valid_key(mh) & (ah != mh)
-    pa_h = jnp.where(okh, ah, INF).reshape(N, -1)
-    pb_h = jnp.where(okh, mh, INF).reshape(N, -1)
-
-    # --- corner pairs: BR and BL single-pixel diagonals ---
-    def corner(dj, a_col, b_col):
-        nsd, okd = nb_slot(1, dj)
-        seld = slot_sel(nsd, okd)
-        a = rows3[:, :, CR - 1, a_col]
-        bsrc = rows3[:, :, 0, b_col]
-        bvals = limb_pick(bsrc + 1, seld, "nts,ns->nt", NL_K) - 1
-        bvals = jnp.where(okd, bvals, INF)
-        okc = valid_key(a) & valid_key(bvals) & (a != bvals)
-        return jnp.where(okc, a, INF), jnp.where(okc, bvals, INF)
-
-    pa_br, pb_br = corner(1, TW - 1, 0)
-    pa_bl, pb_bl = corner(-1, 0, TW - 1)
-
-    pa = jnp.concatenate([pa_v, pa_h, pa_br, pa_bl], axis=1)
-    pb = jnp.concatenate([pb_v, pb_h, pb_br, pb_bl], axis=1)
-
-    # --- adjacency counts + missing-key census, chunked over pairs ---
-    P = pa.shape[1]
-    CH = min(8192, -(-P // 128) * 128)
-    Pp = -(-P // CH) * CH
-    pa = jnp.pad(pa, ((0, 0), (0, Pp - P)), constant_values=2**30)
-    pb = jnp.pad(pb, ((0, 0), (0, Pp - P)), constant_values=2**30)
-    pa = pa.reshape(N, Pp // CH, CH)
-    pb = pb.reshape(N, Pp // CH, CH)
-
-    def chunk(carry, k):
-        adj, miss = carry
-        ca = lax.dynamic_index_in_dim(pa, k, axis=1, keepdims=False)
-        cb = lax.dynamic_index_in_dim(pb, k, axis=1, keepdims=False)
-        eqa = ca[:, :, None] == table[:, None, :]
-        eqb = cb[:, :, None] == table[:, None, :]
-        adj = adj + jnp.einsum(
-            "npi,npj->nij",
-            eqa.astype(jnp.bfloat16),
-            eqb.astype(jnp.bfloat16),
-            preferred_element_type=jnp.float32,
-        )
-        # keys absent from the table only happen when the table itself
-        # truncated (n_roots > C) — counted via root_over too; still
-        # count the dropped pairs so the condition is per-frame visible
-        hp = ca < INF
-        found_k = jnp.any(eqa, axis=2) & jnp.any(eqb, axis=2)
-        miss = miss + jnp.sum(hp & ~found_k, axis=1, dtype=jnp.int32)
-        return (adj, miss), 0
-
-    (adj, missing), _ = lax.scan(
-        chunk,
-        (jnp.zeros((N, C, C), jnp.float32), jnp.zeros((N,), jnp.int32)),
-        jnp.arange(Pp // CH),
-    )
-
-    # --- closure by boolean matmul squaring ---
-    eye = jnp.eye(C, dtype=jnp.float32)[None]
-    A = ((adj + jnp.swapaxes(adj, 1, 2) + eye) > 0).astype(jnp.bfloat16)
-    for _ in range(max(1, int(np.ceil(np.log2(max(C, 2)))))):
-        A = (
-            jnp.einsum(
-                "nij,njk->nik", A, A,
-                preferred_element_type=jnp.float32,
-            )
-            > 0
-        ).astype(jnp.bfloat16)
-    reach = A > 0
-    fk = jnp.min(jnp.where(reach, table[:, None, :], INF), axis=2)
-    # invalid table entries (sent + 2) reach only themselves, so fk
-    # keeps them unchanged, matching the multi-pass table exactly
-    fk = jnp.minimum(fk, table)
-
-    root_over = jnp.maximum(n_roots - C, 0)
-    overflow = missing + root_over
-    return fk, overflow
-
-
-@partial(
-    jax.jit,
-    static_argnames=("H", "W", "max_components", "compute_bbox",
-                     "reconcile"),
-)
-def _stats_from_compact(
-    compact: jnp.ndarray,
-    strip_occ: jnp.ndarray,
-    H: int,
-    W: int,
-    max_components: int = 64,
-    compute_bbox: bool = False,
-    reconcile: bool = False,
-):
-    """Gen-5 tail: stats from the COMPACT slot buffer emitted by
-    tpuva.ops.pallas.ccl.label_components_tiled_raw(compact_slots=T).
-
-    The raw-buffer path (_stats_from_raw) row-gathers up to
-    `sparse_strips` occupied strips out of the sparse padded label buffer
-    — ~17 ms of selection chains + gathers per 256-frame 1080p batch,
-    the largest single cost of the staged pipeline (TPU row gathers run
-    far off memory speed-of-light). Here the CCL kernel has already
-    written every occupied (slot_rows x 256) sub-block DENSELY at its
-    per-frame raster rank, so label data is read with ZERO gathers: a
-    pure reshape turns slot blocks into (slot_rows/2, 512) spatial
-    strips (identical layout to the gathered strips of the raw path).
-    The contraction cost scales with T x slot_rows/2 strips, so the
-    16-row default slot keeps it at the raw path's 256-strip budget
-    while tolerating foreground scattered across T distinct bands.
-
-    Slot-major strip order is not ascending-key order (cv2's id order),
-    so strips are re-ordered by a tiny per-frame sort of their base keys
-    (metadata only — (N, S) int32) before the root-table selection;
-    the payload contraction itself is order-independent. Semantics
-    (6-bit-limb MXU contraction, exact integer sums, cv2 ascending-id
-    root table) are identical to _stats_from_raw — bit-equality pinned
-    by tests/test_ccl_raw.py.
-
-    Capacity is slot-granular: frames occupying more than T sub-blocks
-    drop the excess (in raster order); `overflow` reports the number of
-    occupied strips inside dropped blocks (0 = exact, same strictness
-    contract as the sparse-strip path).
-
-    8-connectivity only. compact: (Nfp, T, slot_rows, 256) int32 (slots
-    beyond the frame's occupied-block count are uninitialized garbage —
-    masked here by the strip_occ-derived rank, never trusted);
-    strip_occ: (N, Hp//2, Wp//256) any-mask flag per (2x256) key strip.
-
-    reconcile=True consumes the SINGLE-PASS kernel's output
-    (label_components_tiled_raw(single_pass=True)): fragment roots are
-    unioned at the record level via _fragment_closure, their limb sums
-    merged by final key (exact: all limb quantities are exact integers
-    in f32 and addition regrouping preserves them), the root table
-    compacted to the merged components' ascending min keys (preserving
-    the valid-prefix invariant the tiered contraction relies on), and
-    bboxes merged as interval hulls. The result is BIT-IDENTICAL to
-    running the multi-pass kernel + reconcile=False (pinned by
-    tests/test_ccl_records.py); "reconcile_overflow" reports every
-    strict-capacity event (see _fragment_closure) and is 0 when off.
-    """
-    N, Hbp, Qcp = strip_occ.shape
-    Nfp, T, CR, TW = compact.shape
-    assert TW == 256, "compact stats assume 256-col slots"
-    SB = CR // 2  # strips per slot
-    gh, gw = Hbp // SB, Qcp
-    G = gh * gw
-    S = T * SB
-    C = max_components
-    _kmap2, _inv2, sent = _scan_key(H, W, 8)
-    Wb = (W + 1) // 2
-    _keys, _base_g, kofs = _strip_keys(H, W, 8, Qcp, Hbp * Qcp)
-
-    # occupied-tile ranks from the caller's strip occupancy — the same
-    # reduction the CCL kernel prefetches, so slot assignment agrees
-    occ_strip3 = strip_occ != 0
-    occf3 = lax.reduce_window(
-        occ_strip3.astype(jnp.int32), jnp.int32(0), lax.max,
-        (1, SB, 1), (1, SB, 1), "VALID",
-    )  # (N, gh, gw)
-    occ_t = occf3.reshape(N, G) > 0
-    cum_t = jnp.cumsum(occ_t.astype(jnp.int32), axis=1)
-    tiles_occ = cum_t[:, -1]
-    ts = jnp.arange(T, dtype=jnp.int32)
-    # slot -> raster tile id (first tile with cum > slot)
-    tile_id = jnp.minimum(
-        jnp.sum(
-            (cum_t[:, :, None] <= ts[None, None, :]).astype(jnp.int32),
-            axis=1,
-        ),
-        G - 1,
-    )  # (N, T)
-    slot_valid = ts[None, :] < jnp.minimum(tiles_occ, T)[:, None]
-
-    # overflow: occupied strips living in tiles ranked past capacity
-    rank_t = (cum_t - occ_t.astype(jnp.int32)).reshape(N, gh, gw)
-    strip_rank = jnp.broadcast_to(
-        rank_t[:, :, None, :], (N, gh, SB, gw)
-    ).reshape(N, Hbp, gw)
-    overflow = jnp.sum(
-        occ_strip3 & (strip_rank >= T), axis=(1, 2), dtype=jnp.int32
-    )
-
-    # strips in slot-major order. Layout choice (round 4, measured by
-    # the stats probe): the (SB, 512) strip view of a (CR, 256) slot
-    # block is row-major-free but NOT TPU-tile-free — XLA materializes a
-    # ~200 MB relayout copy of the whole buffer at batch 256. The
-    # ROW-granular (2S, 256) view IS tile-free (leading-dim merge only),
-    # so the hot path (no bbox) keeps rows and folds the row parity into
-    # the per-row key base / y coordinate; only the tiny per-component
-    # gathers ever form 512-wide data. The bbox path still needs the
-    # (N, S, 512) membership tensor and keeps the old view.
-    ti = tile_id // gw
-    tj = tile_id % gw
-    rr = jnp.arange(SB, dtype=jnp.int32)
-    b = (ti[:, :, None] * SB + rr[None, None, :]).reshape(N, S)  # block row
-    c = jnp.broadcast_to(tj[:, :, None], (N, T, SB)).reshape(N, S)  # chunk
-    base_s = (b * Wb + c * 128) * 4  # (N, S) strip base keys
-    sv = jnp.broadcast_to(slot_valid[:, :, None], (N, T, SB)).reshape(N, S)
-
-    if compute_bbox:
-        got = compact[:N].reshape(N, S, 2 * TW)
-        got = jnp.where(sv[:, :, None], got, jnp.int32(-1))
-        # root flags (see _stats_from_raw for the `< sent` alias guard)
-        flags = (
-            got == base_s[:, :, None] + jnp.asarray(kofs)[None, None]
-        ) & (got < jnp.int32(sent))
-        cnts = jnp.sum(flags, axis=2, dtype=jnp.int32)  # (N, S)
-    else:
-        gotr = compact[:N].reshape(N, 2 * S, TW)  # free view
-        svr = jnp.repeat(sv, 2, axis=1)
-        gotr = jnp.where(svr[:, :, None], gotr, jnp.int32(-1))
-        # per-row key offsets: row j of a slot block is strip j>>1,
-        # parity j&1; within the old 512 strip view that row's slots sat
-        # at v = par*256 + col with kofs = (col>>1)*4 + par*2 + (col&1)
-        cols = np.arange(TW, dtype=np.int64)
-        kof_par = np.stack(
-            [(cols >> 1) * 4 + p * 2 + (cols & 1) for p in (0, 1)]
-        ).astype(np.int32)  # (2, 256)
-        kof_rows = jnp.asarray(np.tile(kof_par, (S, 1)))  # (2S, 256)
-        base_r = jnp.repeat(base_s, 2, axis=1)  # (N, 2S)
-        flags_r = (
-            gotr == base_r[:, :, None] + kof_rows[None]
-        ) & (gotr < jnp.int32(sent))
-        cnts = jnp.sum(
-            flags_r, axis=2, dtype=jnp.int32
-        ).reshape(N, S, 2).sum(axis=2)  # (N, S)
-
-    # ascending-key strip order via a tiny metadata sort (roots must be
-    # id'd in cv2 ascending-key order; slot-major order interleaves tile
-    # columns wrongly whenever >1 tile column is occupied)
-    key_big = jnp.where(sv, base_s, jnp.int32(2**30))
-    iota_s = jnp.broadcast_to(
-        jnp.arange(S, dtype=jnp.int32)[None], (N, S)
-    )
-    _ordk, order = lax.sort_key_val(key_big, iota_s, dimension=1)
-    cnts_o = jnp.take_along_axis(cnts, order, axis=1)
-    cum = jnp.cumsum(cnts_o, axis=1)
-    offs = cum - cnts_o
-    n_roots = cum[:, -1]
-    cs = jnp.arange(C, dtype=jnp.int32)
-    chunk_of_c = jnp.minimum(
-        jnp.sum(
-            (cum[:, None, :] <= cs[None, :, None]).astype(jnp.int32),
-            axis=2,
-        ),
-        S - 1,
-    )  # (N, C) position among ORDERED strips
-    r_in_chunk = cs[None, :] - jnp.take_along_axis(offs, chunk_of_c, axis=1)
-    strip_of_c = jnp.take_along_axis(order, chunk_of_c, axis=1)  # raw idx
-    _m1, _m2, _m3, perm = _strip_view_meta(8)
-    if compute_bbox:
-        sel_flags = jnp.take_along_axis(
-            flags, strip_of_c[:, :, None], axis=1
-        )[:, :, jnp.asarray(perm)]  # (N, C, 512) in K-offset order
-    else:
-        # gather the selected strip's TWO rows and re-form the 512 strip
-        # view only on this tiny (N, C, 512) tensor — identical values
-        # to the old full-buffer strip view (v = par*256 + col)
-        ridx = (strip_of_c[:, :, None] * 2
-                + jnp.arange(2, dtype=jnp.int32)[None, None]
-                ).reshape(N, 2 * C)
-        sel_flags = jnp.take_along_axis(
-            flags_r, ridx[:, :, None], axis=1
-        ).reshape(N, C, 512)[:, :, jnp.asarray(perm)]
-    cumk = jnp.cumsum(sel_flags.astype(jnp.int32), axis=2)
-    pos = jnp.argmax(cumk > r_in_chunk[:, :, None], axis=2).astype(jnp.int32)
-    kval = jnp.take_along_axis(base_s, strip_of_c, axis=1) + pos
-    tvalid = cs[None, :] < n_roots[:, None]
-    table = jnp.where(tvalid, kval, jnp.int32(sent + 2))
-
-    # payload contraction: carry-free limb factorization, single proof
-    # and implementation in _limb_contract
-    # tiered when bbox doesn't need the membership tensor — the tail
-    # tier only runs for frames that actually ranked strips past the
-    # head (bit-identical: unskipped tails contribute exactly zero)
-    if compute_bbox:
-        sums, eq4 = _limb_contract(
-            got, table, b, c, tail_split=0, table_invalid=sent + 2,
-        )
-    else:
-        # row-granular operands: y = 2*block_row + parity rides the
-        # per-row base (see _limb_contract's V=256 form)
-        par = jnp.asarray(
-            np.tile(np.array([0, 1], np.int32), S)
-        )  # (2S,)
-        b_row = jnp.repeat(2 * b, 2, axis=1) + par[None]
-        c_row = jnp.repeat(c, 2, axis=1)
-        sums, eq4 = _limb_contract(
-            gotr, table, b_row, c_row, tail_split=128,
-            table_invalid=sent + 2,
-        )
-
-    rec_over = jnp.zeros((N,), jnp.int32)
-    table_out = table
-    n_eff = n_roots
-    bbox_merged = None
-    if reconcile:
-        rows3 = jnp.where(
-            slot_valid[:, :, None, None],
-            compact[:N].reshape(N, T, CR, TW),
-            jnp.int32(-1),
-        )
-        fk, rec_over = _fragment_closure(
-            rows3, slot_valid, tile_id, cum_t, occ_t, gh, gw,
-            table, n_roots, sent,
-        )
-        rep = tvalid & (fk == table)
-        repk = jnp.where(rep, table, jnp.int32(sent + 2))
-        table_m = lax.sort(repk, dimension=1)
-        n_rep = jnp.sum(rep, axis=1, dtype=jnp.int32)
-        # merge matrix: output row k collects every fragment whose
-        # final key equals the k-th representative's key
-        w_sel = (
-            (fk[:, None, :] == table_m[:, :, None])
-            & (table_m[:, :, None] < jnp.int32(sent))
-            & tvalid[:, None, :]
-        )  # (N, C_out, C_in)
-        sums = jnp.sum(
-            jnp.where(w_sel[..., None], sums[:, None, :, :],
-                      jnp.float32(0)),
-            axis=2,
-        )
-        n_eff, table_out = n_rep, table_m
-    count, area, centroid, csum, present = _assemble_stats(
-        sums, n_eff, H, W, C
-    )
-    if compute_bbox and reconcile:
-        area_f = jnp.sum(eq4, axis=(1, 2), dtype=jnp.int32) > 0
-        present_f = jnp.concatenate(
-            [jnp.ones((N, 1), bool), area_f], axis=1
-        )
-        bbox_f = _bbox_from_strips(eq4, b, c, present_f, H, W)[:, 1:]
-        BIG = jnp.int32(2**30)
-        sel = w_sel & area_f[:, None, :]
-        x1 = jnp.min(
-            jnp.where(sel, bbox_f[..., 0][:, None, :], BIG), axis=2
-        )
-        y1 = jnp.min(
-            jnp.where(sel, bbox_f[..., 1][:, None, :], BIG), axis=2
-        )
-        x2 = jnp.max(
-            jnp.where(
-                sel, (bbox_f[..., 0] + bbox_f[..., 2])[:, None, :], -BIG
-            ),
-            axis=2,
-        )
-        y2 = jnp.max(
-            jnp.where(
-                sel, (bbox_f[..., 1] + bbox_f[..., 3])[:, None, :], -BIG
-            ),
-            axis=2,
-        )
-        bbox_c = jnp.stack([x1, y1, x2 - x1, y2 - y1], axis=-1)
-        bbox0 = jnp.broadcast_to(
-            jnp.array([0, 0, W, H], jnp.int32), (N, 4)
-        )
-        bbox = jnp.concatenate([bbox0[:, None], bbox_c], axis=1)
-        bbox = jnp.where(present[:, :, None], bbox, 0).astype(jnp.int32)
-    elif compute_bbox:
-        bbox = _bbox_from_strips(eq4, b, c, present, H, W)
-    else:
-        bbox = jnp.zeros((N, C + 1, 4), jnp.int32)
-    return {
-        "labels": jnp.zeros((N, H, W), jnp.int32),
-        "count": count,
-        "area": area,
-        "bbox": bbox,
-        "centroid": centroid,
-        "centroid_sum": csum,
-        "overflow": overflow,
-        "reconcile_overflow": rec_over,
-        "root_table": table_out,
-    }
 
 
 @partial(jax.jit, static_argnames=("max_blobs",))

@@ -8,7 +8,7 @@ cv2.warpAffine semantics reproduced:
 - BORDER_CONSTANT (out-of-bounds *neighbors* of a sample contribute the
   border value — matched by per-corner masking) and BORDER_REPLICATE.
 
-TPU note: an arbitrary-angle warp is irreducibly a gather (4 per output
+Note: an arbitrary-angle warp is irreducibly a gather (4 per output
 pixel, batched over frames). That is on the repo's avoid-list for METRIC
 path ops, but warping is a geometry/annotation filter (reference used it
 for crop/rotate preprocessing), runs once per frame outside the

@@ -97,11 +97,12 @@ def track_update(
         output row sums exactly one selected source (0 + x == x in f32),
         so positions move bit-exactly; freed slots come out as
         pos=0/tid=0/missed=0, which re-establishes the free-slot part of
-        the layout invariant. NOT a f32 matmul: on TPU a default-
-        precision f32 matmul truncates operands to bf16 (CLAUDE.md
-        invariant; positions are not bf16-exact), and this path only
-        runs on death frames, which no on-chip scene exercises — a
-        silent association hazard the masked sum removes."""
+        the layout invariant. NOT a f32 matmul: a default-precision
+        f32 matmul may round its operands (TF32 on a GPU keeps 10
+        mantissa bits; CLAUDE.md invariant), positions are not exact in
+        fewer bits, and this path only runs on death frames, which few
+        scenes exercise — a silent association hazard the masked sum
+        removes."""
         s32 = still.astype(jnp.int32)
         srank = jnp.cumsum(s32) - s32  # (T,) 0-based target of survivors
         om = still[None, :] & (srank[None, :] == ti[:, None])  # (new, old)
@@ -131,10 +132,10 @@ def track_update(
         # ---- matched updates (eq2[t, j] == slot t matched detection j)
         eq2 = (slot_for_det[None, :] == ti[:, None]) & det_matched[None, :]
         slot_matched = jnp.any(eq2, axis=1)
-        # one-term masked sum, NOT a f32 matmul: detection coordinates
-        # are not bf16-exact and the TPU MXU truncates default-precision
-        # f32 operands to bf16 (CLAUDE.md invariant) — the carried
-        # prediction must be the exact detection position
+        # one-term masked sum, NOT a f32 matmul: a default-precision f32
+        # matmul may round detection coordinates (TF32, CLAUDE.md
+        # invariant) — the carried prediction must be the exact detection
+        # position
         matched_pos = jnp.sum(
             jnp.where(eq2[:, :, None], dets[None, :, :2], 0.0), axis=1
         )
